@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Where the time goes in vdx_torch's AnimateDiff workload, on one GPU.
 
-    python3 scripts/profile_torch_port.py
+    python3 scripts/profile_torch_port.py                      # 512x512, DDIM
+    python3 scripts/profile_torch_port.py --size 768 --scheduler euler
 
-Builds the SD-1.5-width pipeline (bf16, random weights from seed 0, DDIM),
-warms it up, then traces with ``torch.profiler`` one denoising step (one
-CFG-batched UNet call over 2 x 16 frames at 64x64 latents) and one VAE
-decode chunk (8 frames to 512x512). Prints, per phase, the wall time, the
+Builds the SD-1.5-width pipeline (bf16, random weights from seed 0), warms
+it up, then traces with ``torch.profiler`` one denoising step of the given
+sampler (one CFG-batched UNet call over 2 x 16 frames at size/8 latents)
+and one VAE decode chunk (8 frames to size x size). Prints, per phase, the
+wall time, the
 summed device-kernel time by category and the device idle share
 (1 - kernel time / wall time), then the top kernels by device time. The
 categories are read off the kernel names.
@@ -14,6 +16,7 @@ categories are read off the kernel names.
 
 from __future__ import annotations
 
+import argparse
 import collections
 import pathlib
 import subprocess
@@ -23,6 +26,7 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 CATEGORIES = (  # (category, substrings of the kernel name), first match wins
     ("K1 flash attention (ours)", ("flash_dt_staticmax",)),
+    ("K4 flash attention (ours)", ("flash_runmax", "flash_f32")),
     ("K2/K3 GroupNorm (ours)", ("gn_group_kernel", "gn_stats_kernel",
                                 "gn_finalize_kernel", "gn_apply_kernel")),
     ("convolution", ("conv", "fprop", "dgrad", "winograd", "implicit")),
@@ -75,6 +79,10 @@ def profile(fn, label):
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--size", type=int, default=512, help="frame height and width")
+    ap.add_argument("--scheduler", default="ddim")
+    args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
     import torch
 
@@ -89,17 +97,24 @@ def main() -> int:
 
     from vdx_torch.core.dtypes import BF16_POLICY
     from vdx_torch.pipelines import AnimateDiffPipeline
+    from vdx_torch.schedulers import get_sampler, is_multistep
 
     pipe = AnimateDiffPipeline.with_random_params(
-        seed=0, policy=BF16_POLICY, scheduler="ddim", device="cuda")
+        seed=0, policy=BF16_POLICY, scheduler=args.scheduler, device="cuda")
+    print(f"{args.size}x{args.size}, {args.scheduler}", flush=True)
     with torch.inference_mode():
         ctx = pipe.encode_prompt("a corgi walking on the beach", "blurry")
-        tables = pipe._get_tables(25)
-        lat = pipe.initial_noise((1, 16, 64, 64, 4), 1234)
-        z = lat[0, :8]
+        tables = pipe._get_tables(args.scheduler, 25)
+        hw = args.size // pipe.vae.config.downscale
+        noise = pipe.initial_noise((1, 16, hw, hw, 4), 1234)
+        lat = noise * tables.init_noise_sigma
+        state = (get_sampler(args.scheduler).init_state(lat)
+                 if is_multistep(args.scheduler) else None)
+        z = noise[0, :8]
 
         def step():
-            pipe.denoise_step(lat, 0, ctx, 7.5, True, tables)
+            pipe.denoise_step(lat, 0, ctx, 7.5, True, args.scheduler, tables,
+                              state)
 
         def decode():
             pipe.vae.decode(z)

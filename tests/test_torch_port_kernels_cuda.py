@@ -1,5 +1,6 @@
-"""vdx_torch's CUDA kernels (K1, K2, K3) against their plain PyTorch
-versions, on the card, plus an import-hygiene check that runs everywhere.
+"""vdx_torch's CUDA kernels (K1, K4: flash attention; K2, K3: GroupNorm)
+against their plain PyTorch versions, on the card, plus an import-hygiene
+check that runs everywhere.
 
 The kernel tests skip without a GPU. On the card they run with
 
@@ -11,7 +12,12 @@ does not have). Tolerance for bf16 outputs: one bf16 ulp at the largest
 reference magnitude, 2^-7 * max(1, max|ref|) — both sides compute in fp32
 and round once to bf16, so a different fp32 summation order can flip the
 last bit of an element, no more. fp32 outputs: 1e-4 absolute on O(1)
-values (fp32 sums of up to 10^5 terms in different orders).
+values (fp32 sums of up to 10^5 terms in different orders). K4's
+running max rescales acc and l tile by tile where the plain version takes
+one max over the row: the same function up to fp32 rounding, and p is
+rounded to bf16 after the rescale in the kernel but before it in the
+plain version, which moves each weight by under 2^-9 relative, averaging
+out far below one output ulp.
 """
 
 import ast
@@ -57,6 +63,17 @@ K1_CASES = [(2, 512, 512, 2, 40),
             (2, 129, 1000, 2, 64),
             (1, 64, 70, 1, 8),
             (1, 100, 200, 2, 120)]
+K4_CASES = [(32, 576, 576, 8, 160),   # 768x768 level-2 self-attention
+            (2, 1000, 1000, 2, 160),  # multi-tile Skv, ragged tail
+            (1, 300, 300, 2, 20),     # D % 8 != 0: element-wise loads
+            (1, 129, 700, 2, 256),    # the D <= 256 instance, 32-key tiles
+            (1, 200, 333, 3, 128),    # the D <= 128 instance
+            (2, 65, 64, 1, 200)]
+FP32_CASES = [("K1", 2, 300, 300, 2, 40),
+              ("K1", 1, 100, 531, 2, 120),
+              ("K4", 2, 300, 300, 2, 160),
+              ("K4", 1, 100, 200, 2, 20),
+              ("K4", 1, 129, 70, 1, 256)]
 GN_CASES = [(3, 1000, 320, 32, 1e-5, True),
             (2, 777, 128, 32, 1e-6, False),
             (2, 64, 640, 32, 1e-6, True)]
@@ -77,6 +94,58 @@ def _check_k1(cuda, B, Sq, Skv, H, D):
     want = flash_attention_dt_plain(q, k, v, scale=D ** -0.5)
     err = (got.float() - want.float()).abs().max().item()
     assert err <= _tol(want), err
+
+
+def _check_k4(cuda, B, Sq, Skv, H, D):
+    from vdx_torch.kernels.flash_attention import (flash_attention,
+                                                   flash_attention_plain)
+
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    q = _randn((B, Sq, H, D), gen, cuda)
+    k = _randn((B, Skv, H, D), gen, cuda)
+    v = _randn((B, Skv, H, D), gen, cuda)
+    n0 = flash_attention.launches
+    got = flash_attention(q, k, v, scale=D ** -0.5)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == n0 + 1
+    want = flash_attention_plain(q, k, v, scale=D ** -0.5)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= _tol(want), (B, Sq, Skv, H, D, err)
+
+
+def _check_fp32(cuda, kernel, B, Sq, Skv, H, D):
+    """fp32 operands: a SIMT kernel with p kept in fp32, as vdx's Pallas
+    kernels do for fp32 v (the fp32 policy on the card)."""
+    from vdx_torch.kernels import flash_attention as KA
+
+    fn, plain = {"K1": (KA.flash_attention_dt, KA.flash_attention_dt_plain),
+                 "K4": (KA.flash_attention, KA.flash_attention_plain)}[kernel]
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = (torch.randn((B, S, H, D), generator=gen, device=cuda)
+               for S in (Sq, Skv, Skv))
+    n0 = fn.launches
+    got = fn(q, k, v, scale=D ** -0.5)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 1 and got.dtype == torch.float32
+    want = plain(q, k, v, scale=D ** -0.5)
+    err = (got - want).abs().max().item()
+    assert err <= _tol(want), (kernel, B, Sq, Skv, H, D, err)
+
+
+def _check_k4_strided_and_misaligned(cuda):
+    """K4 on views into one fused projection (16-byte row loads), and on
+    rows that are not 16-byte aligned (element loads)."""
+    from vdx_torch.kernels.flash_attention import (flash_attention,
+                                                   flash_attention_plain)
+
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    qkv = _randn((2, 600, 3, 2, 160), gen, cuda)
+    flat = _randn((2 * 600 * 2 * 160 + 4,), gen, cuda)
+    odd = flat[4:].view(2, 600, 2, 160)  # base 8 bytes past alignment
+    for q, k, v in (qkv.unbind(dim=2), (odd, odd, odd)):
+        got = flash_attention(q, k, v, scale=0.1)
+        want = flash_attention_plain(q, k, v, scale=0.1)
+        assert (got.float() - want.float()).abs().max().item() <= _tol(want)
 
 
 def _check_k1_strided_operands(cuda):
@@ -134,14 +203,24 @@ def _check_wrappers_raise_on_what_kernels_do_not_take(cuda):
     from vdx_torch.ops.attention import dot_product_attention
     from vdx_torch.ops.groupnorm import group_norm
 
-    q = torch.randn(1, 512, 2, 40, device=cuda)
+    from vdx_torch.kernels.flash_attention import flash_attention
+
+    q = torch.randn(1, 512, 2, 40, device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError):
-        flash_attention_dt(q, q, q, scale=1.0)  # fp32
+        flash_attention_dt(q, q, q, scale=1.0)  # fp16
     q16 = torch.randn(1, 512, 2, 128, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="K4"):
-        dot_product_attention(q16, q16, q16)
+    n0 = flash_attention.launches
+    dot_product_attention(q16, q16, q16)  # flash-sized, D = 128: K4
+    assert flash_attention.launches == n0 + 1
     with pytest.raises(ValueError, match="head dims"):
         flash_attention_dt(q16, q16, q16, scale=1.0)  # D = 128 is K4's
+    q264 = torch.randn(1, 64, 1, 264, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention(q264, q264, q264, scale=1.0)
+    with pytest.raises(ValueError, match="cpu"):
+        flash_attention(q16, q16.cpu(), q16, scale=1.0)
+    with pytest.raises(TypeError):
+        flash_attention(q16, q16.float(), q16, scale=1.0)
     x = torch.randn(1, 70000, 100, device=cuda)  # C % 8 != 0, slab too big
     with pytest.raises(NotImplementedError):
         group_norm(x, 4, torch.ones(100, device=cuda),
@@ -153,9 +232,15 @@ def _check_wrappers_raise_on_what_kernels_do_not_take(cuda):
 # tests keep it behind the suite's heavy files.
 @pytest.mark.cuda
 def test_k1_matches_plain(cuda):
+    """The flash attention kernels: K1 and K4 (bf16 and fp32)."""
     for case in K1_CASES:
         _check_k1(cuda, *case)
     _check_k1_strided_operands(cuda)
+    for case in K4_CASES:
+        _check_k4(cuda, *case)
+    _check_k4_strided_and_misaligned(cuda)
+    for case in FP32_CASES:
+        _check_fp32(cuda, *case)
 
 
 @pytest.mark.cuda

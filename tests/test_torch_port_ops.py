@@ -2,6 +2,10 @@
 
 * The plain K1 (staticmax flash attention) against vdx's Pallas
   ``flash_attention_dt(..., exp_impl="staticmax")`` in interpret mode.
+* The plain K4 (running-max flash attention) against vdx's Pallas
+  ``flash_attention`` in interpret mode, as tests/test_kernels.py runs it,
+  with 128-row blocks so the running max crosses KV blocks and the last
+  block is ragged (masked), at D = 160, 20 and 256.
 * The plain K2/K3 (fused GroupNorm) against vdx's Pallas
   ``fused_group_norm`` / ``fused_group_norm_2phase`` in interpret mode,
   as tests/test_groupnorm_kernel.py runs them.
@@ -19,6 +23,7 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+from vdx.kernels.flash_attention import flash_attention as jax_flash
 from vdx.kernels.flash_attention import flash_attention_dt as jax_flash_dt
 from vdx.kernels.groupnorm import fused_group_norm as jax_k2
 from vdx.kernels.groupnorm import fused_group_norm_2phase as jax_k3
@@ -62,6 +67,36 @@ def _check_k1_plain_against_pallas(B, Sq, Skv, H, D):
     # staticmax is exact softmax attention up to rounding in fp32
     exact = TA.dot_product_attention(_t(q), _t(k), _t(v), impl="xla")
     np.testing.assert_allclose(got.numpy(), exact.numpy(), atol=2e-5)
+
+
+def _check_k4_plain_against_pallas(B, Sq, Skv, H, D):
+    rng = np.random.default_rng(5)
+    q = rng.standard_normal((B, Sq, H, D), np.float32)
+    k = rng.standard_normal((B, Skv, H, D), np.float32)
+    v = rng.standard_normal((B, Skv, H, D), np.float32)
+    scale = D ** -0.5
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jax_flash(q, k, v, scale=scale, block_q=128,
+                                    block_k=128))
+    got = KA.flash_attention(_t(q), _t(k), _t(v), scale=scale)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5)
+
+
+def _check_flash_dispatch_against_vdx(D):
+    """impl="flash": D % 8 == 0 and D < 128 goes to K1, any other D to K4,
+    on both sides (vdx's Pallas kernels in interpret mode)."""
+    rng = np.random.default_rng(6)
+    q, k, v = (rng.standard_normal((1, 96, 2, D)).astype(np.float32)
+               for _ in range(3))
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(JA.dot_product_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), impl="flash"))
+    got = TA.dot_product_attention(_t(q), _t(k), _t(v), impl="flash")
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5)
+    plain = KA.flash_attention_dt_plain if D % 8 == 0 and D < 128 \
+        else KA.flash_attention_plain
+    np.testing.assert_array_equal(
+        got.numpy(), plain(_t(q), _t(k), _t(v), scale=D ** -0.5).numpy())
 
 
 def _check_gn_plain_against_pallas(kernel, eps, silu):
@@ -136,9 +171,6 @@ def _check_masked_attention_against_vdx():
 
 
 def _check_attention_raises_on_what_is_not_ported():
-    q = torch.zeros(1, 512, 1, 128)
-    with pytest.raises(NotImplementedError, match="K4"):
-        TA.dot_product_attention(q, q, q, impl="flash")
     q = torch.zeros(1, 16, 1, 8)
     with pytest.raises(NotImplementedError):
         TA.dot_product_attention(q, q, q, impl="ring:frames")
@@ -168,6 +200,9 @@ def _check_gn_gate_covers_the_main_path_shapes():
 # tests keep it behind the suite's heavy files.
 K1_CASES = [(2, 512, 512, 2, 16),
             (1, 512, 700, 2, 40)]  # ragged KV tail: masked keys
+K4_CASES = [(2, 200, 200, 2, 160),  # two KV blocks of 128, the last ragged
+            (1, 150, 150, 2, 20),   # D % 8 != 0
+            (1, 130, 130, 1, 256)]
 GN_KERNEL_CASES = [("k2", 1e-5, True), ("k2", 1e-6, False),
                    ("k3", 1e-6, True), ("k3", 1e-5, False)]
 GN_OP_CASES = [((2, 4, 6, 64), 1e-5),     # resnet GN over [B, H, W, C]
@@ -185,6 +220,8 @@ ATTENTION_CASES = [
 def test_kernel_plain_versions_match_pallas():
     for case in K1_CASES:
         _check_k1_plain_against_pallas(*case)
+    for case in K4_CASES:
+        _check_k4_plain_against_pallas(*case)
     for case in GN_KERNEL_CASES:
         _check_gn_plain_against_pallas(*case)
 
@@ -196,6 +233,8 @@ def test_ops_match_vdx():
     for case in ATTENTION_CASES:
         _check_attention_against_vdx(*case)
     _check_masked_attention_against_vdx()
+    for D in (40, 160):
+        _check_flash_dispatch_against_vdx(D)
 
 
 def test_ops_raise_on_what_is_not_ported_and_gate_main_path():

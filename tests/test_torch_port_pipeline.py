@@ -1,25 +1,39 @@
 """The port's AnimateDiff slice against vdx's, end to end on the CPU (fp32,
-tiny configs), plus the DDIM scheduler, the CFG combine and the pipeline's
-surface.
+tiny configs), plus the DDIM scheduler, the CFG combine, the sampler-
+generic denoise loop and the pipeline's surface.
 
-vdx's AnimateDiffPipeline runs once (the only vdx pipeline compile in the
-port's tests): 8 frames at 64x64, 2 DDIM steps, CFG 7.5, its program
-compiled at XLA optimisation level 0 (vdx's own O0 and default builds
-differ by up to 8e-5 in these latents and one uint8 level in the frames).
+vdx's AnimateDiffPipeline compiles two programs (the only vdx pipeline
+compiles in the port's tests), each at XLA optimisation level 0 (vdx's
+own O0 and default builds differ by up to 8e-5 in these latents and one
+uint8 level in the frames): 8 frames at 64x64, 2 DDIM steps, CFG 7.5;
+and the pipeline's default sampler, Euler, at a non-square 64x128, 2
+steps, CFG 7.5.
 The port gets the same weights through
 vdx_torch.core.convert.params_from_jax and the vdx program's initial noise (jax.random.normal(as_key(seed), latent_shape),
 as vdx's ``_noise_maker`` draws it).
 
 Per-step latents: vdx's compiled program takes its scheduler tables as
 runtime arguments, so running it again with step 1 turned into the
-identity update (alpha_prod_prev = alpha_prod_t) returns the latents
-after step 0 from the same executable.
+identity update (DDIM: alpha_prod_prev = alpha_prod_t; Euler: the next
+sigma equal to the current one) returns the latents after step 0 from
+the same executable.
 
 Tolerances: one UNet call agrees to ~2e-5 (test_torch_port_models); the
 CFG combine u + 7.5 (c - u) scales an eps difference by up to 16, and the
 DDIM step by up to sqrt(1 - a) / sqrt(a) + 1 < 3 at these timesteps, so
 latents after a step agree to 16 * 3 * 2e-5 ~= 1e-3 (atol, on O(1)
 latents). Frames: within one uint8 level.
+
+Euler's first step feeds the UNet t = 999.0, where each side's fp32
+timestep embedding sits up to ~5e-5 off the float64 one and the tiny UNet
+outputs differ by up to ~1e-4 (ROADMAP Queue 3). The Euler update
+x + eps (sigma' - sigma) moves that by the CFG factor (up to 16) times
+|sigma' - sigma| (at most the initial sigma, 14.6): 1e-4 * 16 * 14.6
+~= 2.5e-2 (atol; these random weights give latents up to ~100).
+
+The multistep samplers are held in the port's loop against a loop
+composed here from vdx's sampler functions, fed the port UNet's outputs
+(no vdx program per sampler): the carry must thread the same state.
 """
 
 import jax
@@ -56,7 +70,9 @@ PROMPT = "a corgi walking on the beach, sunset lighting, high quality"
 NEG = "bad quality, blurry, distorted"
 SEED = 1234
 LATENT_SHAPE = (1, 8, 8, 8, 4)
+EULER_SHAPE = (1, 8, 8, 16, 4)  # 64x128 pixels
 STEP_ATOL = 1e-3
+EULER_STEP_ATOL = 2.5e-2
 
 
 def _tiny_port(**kw):
@@ -103,6 +119,18 @@ def slice_run():
     lat_step0, _ = run(*args[:4], identity_step1)
     noise = jax.random.normal(as_key(SEED), LATENT_SHAPE, jnp.float32)
 
+    # Euler, the pipeline's default sampler, at a non-square size
+    prog = jpipe._get_program(scheduler="euler", guidance=True,
+                              latent_shape=EULER_SHAPE, num_steps=2, chunk=8)
+    etables = jpipe._get_tables("euler", 2)
+    eargs = args[:4] + (etables,)
+    erun = prog.lower(*eargs).compile(
+        compiler_options={"xla_backend_optimization_level": 0})
+    elat, eframes = erun(*eargs)
+    eout = jpipe._postprocess(elat, eframes, None, "np", 1)
+    elat0, _ = erun(*args[:4], etables._replace(
+        sigmas=etables.sigmas.at[2].set(etables.sigmas[1])))
+
     tpipe = _tiny_port()
     tpipe.load_state_dicts({
         name: params_from_jax(
@@ -112,7 +140,9 @@ def slice_run():
                           ("text", JCC.tiny()))})
     return dict(jax_out=out, jax_cond=np.array(cond),
                 jax_step0=np.array(lat_step0), noise=np.array(noise),
-                tpipe=tpipe)
+                tpipe=tpipe, euler_out=eout, euler_step0=np.array(elat0),
+                euler_noise=np.array(jax.random.normal(
+                    as_key(SEED), EULER_SHAPE, jnp.float32)))
 
 
 def _check_prompt_encoding(slice_run):
@@ -124,31 +154,68 @@ def _check_prompt_encoding(slice_run):
 def _check_latents_after_each_step(slice_run):
     tp = slice_run["tpipe"]
     ctx = torch.from_numpy(slice_run["jax_cond"].copy())
-    tables = tp._get_tables(2)
-    noise = torch.from_numpy(slice_run["noise"])
-    want0 = slice_run["jax_step0"]
-    want1 = np.asarray(slice_run["jax_out"].latents)
-    step0 = tp.denoise_step(noise, 0, ctx, 7.5, True, tables)
-    np.testing.assert_allclose(step0.numpy(), want0, atol=STEP_ATOL)
-    # step 1 from matched inputs (vdx's latents after step 0) ...
-    step1 = tp.denoise_step(torch.from_numpy(want0.copy()), 1, ctx, 7.5, True,
-                            tables)
-    np.testing.assert_allclose(step1.numpy(), want1, atol=STEP_ATOL)
-    # ... and the port's own trajectory from the same noise
-    final = tp._denoise(ctx, 7.5, True, tables, LATENT_SHAPE, SEED,
-                        latents_in=noise)
-    np.testing.assert_allclose(final.numpy(), want1, atol=2 * STEP_ATOL)
+    for sched, out, want0, noise, shape, atol in (
+            ("ddim", slice_run["jax_out"], slice_run["jax_step0"],
+             slice_run["noise"], LATENT_SHAPE, STEP_ATOL),
+            ("euler", slice_run["euler_out"], slice_run["euler_step0"],
+             slice_run["euler_noise"], EULER_SHAPE, EULER_STEP_ATOL)):
+        tables = tp._get_tables(sched, 2)
+        noise = torch.from_numpy(noise)
+        want1 = np.asarray(out.latents)
+        step0, _ = tp.denoise_step(noise * tables.init_noise_sigma, 0, ctx,
+                                   7.5, True, sched, tables)
+        np.testing.assert_allclose(step0.numpy(), want0, atol=atol)
+        # step 1 from matched inputs (vdx's latents after step 0) ...
+        step1, _ = tp.denoise_step(torch.from_numpy(want0.copy()), 1, ctx,
+                                   7.5, True, sched, tables)
+        np.testing.assert_allclose(step1.numpy(), want1, atol=atol)
+        # ... and the port's own trajectory from the same noise
+        final = tp._denoise(ctx, 7.5, True, sched, tables, shape, SEED,
+                            latents_in=noise)
+        np.testing.assert_allclose(final.numpy(), want1, atol=2 * atol)
+
+
+def _check_multistep_carry_against_vdx_samplers(slice_run):
+    """The port's loop (its samplers, its carry) against a loop composed
+    from vdx's sampler functions, both fed the port UNet's outputs."""
+    import vdx.schedulers as JS
+    from vdx.schedulers.common import cfg_combine as j_cfg
+
+    tp = slice_run["tpipe"]
+    ctx = torch.from_numpy(slice_run["jax_cond"].copy())
+    noise = slice_run["noise"]
+    n = 3
+    for sched in ("dpm", "dpm_edm", "unipc"):
+        got = tp._denoise(ctx, 7.5, True, sched, tp._get_tables(sched, n),
+                          LATENT_SHAPE, SEED, latents_in=torch.from_numpy(noise))
+        js, jt = JS.get_sampler(sched), JS.make_tables_for(sched, n)
+        x = jnp.asarray(noise) * jt.init_noise_sigma
+        state = js.init_state(x)
+        for i in range(n):
+            model_in = js.scale_model_input(jnp.concatenate([x, x]), i, jt)
+            t_b = torch.from_numpy(np.array(jt.timesteps[i])).expand(2)
+            with torch.inference_mode():
+                eps = tp.unet(torch.from_numpy(np.array(model_in)), t_b, ctx)
+            u, c = np.split(eps.numpy(), 2)
+            x, state = js.step_multistep(
+                x, j_cfg(jnp.asarray(u), jnp.asarray(c), 7.5), i, state, jt)
+        want = np.asarray(x)
+        tol = 1e-5 * max(1.0, float(np.abs(want).max()))
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=tol,
+                                   err_msg=sched)
 
 
 def _check_frames_within_one_level(slice_run):
     tp = slice_run["tpipe"]
-    want = slice_run["jax_out"].frames[0]
-    lat = torch.from_numpy(np.array(slice_run["jax_out"].latents))
-    got = tp._decode(lat, 8)[0].numpy()
-    assert got.shape == want.shape == (8, 64, 64, 3) and got.dtype == np.uint8
-    diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
-    assert diff.max() <= 1, diff.max()
-    assert want.std() > 0
+    for out, hw in ((slice_run["jax_out"], (64, 64)),
+                    (slice_run["euler_out"], (64, 128))):
+        want = out.frames[0]
+        lat = torch.from_numpy(np.array(out.latents))
+        got = tp._decode(lat, 8)[0].numpy()
+        assert got.shape == want.shape == (8, *hw, 3) and got.dtype == np.uint8
+        diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
+        assert diff.max() <= 1, diff.max()
+        assert want.std() > 0
 
 
 def _check_call_runs_the_slice_end_to_end(slice_run):
@@ -164,6 +231,13 @@ def _check_call_runs_the_slice_end_to_end(slice_run):
     np.testing.assert_array_equal(a, b)
     lat = tp(PROMPT, **dict(kw, output_type="latent")).latents
     assert tuple(lat.shape) == LATENT_SHAPE
+    # the pipeline's own default sampler (Euler) through __call__
+    dflt = TPipe(unet_config=TUC.tiny(), vae_config=TVC.tiny(),
+                 text_config=TCC.tiny(), policy=TP, device="cpu")
+    assert dflt.scheduler == "euler"
+    dflt.unet, dflt.vae, dflt.text_encoder = tp.unet, tp.vae, tp.text_encoder
+    e = dflt(PROMPT, **dict(kw, width=128, num_inference_steps=1)).frames[0]
+    assert e.shape == (8, 64, 128, 3) and e.dtype == np.uint8 and e.std() > 0
 
 
 def _check_ddim_tables_and_steps():
@@ -235,17 +309,17 @@ def _check_surface_raises(slice_run):
         tp(PROMPT, video=np.zeros((8, 64, 64, 3), np.uint8), **kw)
     with pytest.raises(NotImplementedError):
         tp(PROMPT, dispatch_steps=1, **kw)
-    with pytest.raises(NotImplementedError):
-        tp(PROMPT, scheduler="euler", **kw)
+    with pytest.raises(ValueError, match="unknown sampler"):
+        tp(PROMPT, scheduler="heun", **kw)
     with pytest.raises(NotImplementedError):
         tp([PROMPT, PROMPT], **kw)
     with pytest.raises(NotImplementedError):
         tp(PROMPT, guidance_scale=np.full(1, 7.5), **kw)
     with pytest.raises(NotImplementedError):
         tp(PROMPT, output_type="device", **kw)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="unknown sampler"):
         TPipe(unet_config=TUC.tiny(), vae_config=TVC.tiny(),
-              text_config=TCC.tiny(), device="cpu")  # default scheduler: euler
+              text_config=TCC.tiny(), device="cpu", scheduler="heun")
 
 
 def _check_runs_on_cuda_unless_asked_for_the_cpu():
@@ -267,6 +341,7 @@ def test_slice_matches_vdx(slice_run):
     _check_latents_after_each_step(slice_run)
     _check_frames_within_one_level(slice_run)
     _check_call_runs_the_slice_end_to_end(slice_run)
+    _check_multistep_carry_against_vdx_samplers(slice_run)
 
 
 def test_scheduler_math_matches_vdx():

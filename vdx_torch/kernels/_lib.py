@@ -1,10 +1,14 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-One ``nvcc`` call compiles every source under ``vdx_torch/csrc`` into
-``vdx_torch/_build/libvdx_torch_kernels.so`` — plain C entry points, no
-PyTorch headers, no CUTLASS — which is then loaded with ``ctypes``. The
-build runs at first use and is skipped when the library exists and the
-hash of the sources (and flags) matches the stamp beside it.
+Each source under ``vdx_torch/csrc`` is compiled by its own ``nvcc``
+process, all started together, and one more ``nvcc`` links the objects
+into ``vdx_torch/_build/libvdx_torch_kernels.so`` — plain C entry points,
+no PyTorch headers, no CUTLASS — which is then loaded with ``ctypes``.
+The build runs at first use and is skipped when the library exists and
+the hash of the sources (and flags) matches the stamp beside it. The
+compilers' output (``-Xptxas -v``: registers, shared memory and spills of
+every kernel) is kept in ``build_info["nvcc_output"]`` and in
+``_build/nvcc.log``.
 
 A missing ``nvcc`` or a failed build raises: no caller gives way to a
 plain version.
@@ -26,7 +30,7 @@ BUILD_DIR = PKG_DIR / "_build"
 LIB_NAME = "libvdx_torch_kernels.so"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+    "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v",
 ]
 
 _P = ctypes.c_void_p
@@ -40,6 +44,12 @@ _SIGNATURES = {
     # strides, o strides, q_mult, stream
     "vdx_flash_attention_dt_staticmax_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I]
     + [_L] * 12 + [_F, _P],
+    # the same, then t_mult, vec (16-byte row loads), stream
+    "vdx_flash_attention_runmax_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I]
+    + [_L] * 12 + [_F, _I, _P],
+    # the same, then mult, running_max (K4's form, else K1's), stream
+    "vdx_flash_attention_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I]
+    + [_L] * 12 + [_F, _I, _P],
     # x, scale, bias, y, B, S, C, G, eps, silu, stream
     "vdx_group_norm_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     "vdx_group_norm_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
@@ -82,8 +92,9 @@ def _nvcc() -> str:
 
 def build() -> Path:
     """Compile ``csrc/*.cu`` into the shared library unless the cached one
-    matches the sources. Records ``build_s`` and ``cached`` in
-    ``build_info``."""
+    matches the sources: one ``nvcc -c`` per source, run in parallel, then
+    one link. Records ``build_s``, ``cached``, the commands and the
+    compilers' output in ``build_info``."""
     so = BUILD_DIR / LIB_NAME
     stamp = BUILD_DIR / (LIB_NAME + ".sha256")
     digest = sources_hash()
@@ -93,19 +104,40 @@ def build() -> Path:
         build_info.update(cached=True, build_s=time.time() - t0, path=str(so))
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / (LIB_NAME + f".tmp{os.getpid()}")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in sorted(CSRC_DIR.glob("*.cu"))]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (rc {res.returncode}): {' '.join(cmd)}\n"
-            f"{res.stdout}\n{res.stderr}"
-        )
+    nvcc = _nvcc()
+    tag = f".{os.getpid()}"
+    objs, procs = [], []
+    for src in sorted(CSRC_DIR.glob("*.cu")):
+        obj = BUILD_DIR / (src.stem + tag + ".o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for cmd, proc in procs:
+        out = proc.communicate()[0]
+        logs.append(f"$ {' '.join(cmd)}\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed (rc {proc.returncode}): "
+                          f"{' '.join(cmd)}\n{out}")
+    tmp = BUILD_DIR / (LIB_NAME + tag)
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        logs.append(f"$ {' '.join(cmd)}\n{res.stdout}{res.stderr}")
+        if res.returncode != 0:
+            failed.append(f"nvcc link failed (rc {res.returncode}): "
+                          f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    log = "\n".join(logs).strip()
+    (BUILD_DIR / "nvcc.log").write_text(log + "\n")
+    if failed:
+        raise RuntimeError("\n".join(failed))
     os.replace(tmp, so)
     stamp.write_text(digest)
     build_info.update(cached=False, build_s=time.time() - t0, path=str(so),
-                      nvcc_output=(res.stdout + res.stderr).strip())
+                      nvcc_output=log)
     return so
 
 

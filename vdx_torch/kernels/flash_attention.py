@@ -1,20 +1,27 @@
-"""K1 — staticmax flash attention (CUDA, ``csrc/flash_attention.cu``).
+"""K1 (staticmax) and K4 (running-max) flash attention (CUDA,
+``csrc/flash_attention*.cu``).
 
-Port of vdx/kernels/flash_attention.py ``flash_attention_dt(...,
+K1 — port of vdx/kernels/flash_attention.py ``flash_attention_dt(...,
 exp_impl="staticmax")``: non-causal softmax(q k^T * scale) v over
 [B, S, H, D] tensors in the max-free base-2 form
 
-    p = 2^(s * scale * log2(e) - 80),   out = (sum bf16(p) v) / max(l, 2^-126)
+    p = 2^(s * scale * log2(e) - 80),   out = (sum r(p) v) / max(l, 2^-126)
 
-with ``l`` summed from the unrounded p. The power-of-two offset is exact
-and cancels in acc / l. Domain bound (as vdx, ``STATIC_OFF``): a row whose
-every scaled logit is below -46 underflows to zeros; one above ~193
-overflows.
+with ``l`` summed from the unrounded p and r() the rounding to v's dtype.
+The power-of-two offset is exact and cancels in acc / l. Domain bound (as
+vdx, ``STATIC_OFF``): a row whose every scaled logit is below -46
+underflows to zeros; one above ~193 overflows.
 
-:func:`flash_attention_dt` launches the CUDA kernel for a CUDA tensor and
-raises on anything the kernel does not take; for a CPU tensor it computes
-:func:`flash_attention_dt_plain`, the plain PyTorch version the tests and
-``chip_smoke.py`` hold the kernel against.
+K4 — port of vdx/kernels/flash_attention.py ``flash_attention``: the same
+function by the running-max online softmax (m' = max(m, rowmax s),
+alpha = e^(m - m'), p = e^(s - m'), l' = alpha l + sum p over the
+unrounded p, acc' = alpha acc + r(p) v), for any head dim up to 256. No
+domain bound.
+
+Each wrapper launches its CUDA kernel for a CUDA tensor (bf16 on the
+tensor cores, fp32 on a SIMT kernel with fp32 p) and raises on anything
+the kernel does not take; for a CPU tensor it computes its plain PyTorch
+version, which the tests and ``chip_smoke.py`` hold the kernel against.
 """
 
 from __future__ import annotations
@@ -42,49 +49,124 @@ def flash_attention_dt_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (acc / l.transpose(1, 2)[..., None]).to(q.dtype)
 
 
-def _check_operand(name: str, t: torch.Tensor, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, q on {device}")
-    if t.dtype != torch.bfloat16:
-        raise TypeError(f"K1 takes bf16 {name}, got {t.dtype}")
-    if t.dim() != 4 or t.stride(-1) != 1:
-        raise ValueError(f"K1 needs {name} as [B, S, H, D] with unit stride on D")
-    if any(st % 8 for st in t.stride()[:3]) or t.data_ptr() % 16:
-        raise ValueError(f"K1 needs {name} 16-byte aligned rows "
-                         f"(strides {t.stride()})")
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, scale: float) -> torch.Tensor:
+    """Plain PyTorch K4: the S x S scores materialised, softmax in fp32
+    with l from the unrounded p, PV from p rounded to v's dtype, one
+    rounding at the end. [B, Sq, H, D] -> [B, Sq, H, D]."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1)  # [b, h, q]
+    acc = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
+    return (acc / l.transpose(1, 2)[..., None]).to(q.dtype)
 
 
-def flash_attention_dt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                       *, scale: float) -> torch.Tensor:
-    """Staticmax flash attention, [B, Sq, H, D] x [B, Skv, H, D]^2 -> q's shape.
-
-    CUDA: bf16 only, D % 8 == 0 and D < 128, 16-byte aligned rows; one
-    launch on the current stream, no synchronise. CPU: the plain version.
-    """
-    if q.device.type == "cpu":
-        return flash_attention_dt_plain(q, k, v, scale=scale)
+def _check_operands(what: str, q, k, v) -> None:
+    """Device, dtype, shape and layout checks shared by K1 and K4."""
     if q.device.type != "cuda":
-        raise ValueError(f"K1 runs on cuda or cpu tensors, got {q.device}")
+        raise ValueError(f"{what} runs on cuda or cpu tensors, got {q.device}")
     B, Sq, H, D = q.shape
     Skv = k.shape[1]
     if k.shape != (B, Skv, H, D) or v.shape != k.shape:
         raise ValueError(f"shape mismatch: q {q.shape} k {k.shape} v {v.shape}")
-    if D % 8 or not 8 <= D < 128:  # what ops.attention sends here
-        raise ValueError(f"K1 takes head dims 8..120 in steps of 8, got {D}")
     if B * H > 65535 or Sq < 1 or Skv < 1:
-        raise ValueError(f"K1 grid out of range: B*H={B * H}, Sq={Sq}, Skv={Skv}")
+        raise ValueError(f"{what} grid out of range: B*H={B * H}, Sq={Sq}, "
+                         f"Skv={Skv}")
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{what} takes bf16 or fp32, got {q.dtype}")
+    for name, t in (("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} is {t.dtype}, q {q.dtype}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        _check_operand(name, t, q.device)
+        if t.stride(-1) != 1:
+            raise ValueError(f"{what} needs {name} with unit stride on D")
+
+
+def _rows_16b_aligned(*ts: torch.Tensor) -> bool:
+    """Every [b, s, h] row of each tensor starts on a 16-byte boundary
+    (bf16: strides in multiples of 8 elements, an aligned base)."""
+    return all(not any(st % 8 for st in t.stride()[:3]) and t.data_ptr() % 16 == 0
+               for t in ts)
+
+
+def _strides(*ts: torch.Tensor):
+    return [st for t in ts for st in t.stride()[:3]]
+
+
+def _launch_f32(q, k, v, *, scale: float, running_max: bool) -> torch.Tensor:
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
-    lib = _lib.lib()
-    err = lib.vdx_flash_attention_dt_staticmax_bf16(
+    B, Sq, H, D = q.shape
+    err = _lib.lib().vdx_flash_attention_f32(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        B, Sq, Skv, H, D, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        *o.stride()[:3], float(scale * LOG2E), _lib.stream_ptr(q.device),
-    )
-    _lib.check(err, "K1 flash_attention_dt")
+        B, Sq, k.shape[1], H, D, *_strides(q, k, v, o),
+        float(scale * LOG2E), int(running_max), _lib.stream_ptr(q.device))
+    _lib.check(err, "flash attention (fp32)")
+    return o
+
+
+def flash_attention_dt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       *, scale: float) -> torch.Tensor:
+    """K1: staticmax flash attention, [B, Sq, H, D] x [B, Skv, H, D]^2 ->
+    q's shape.
+
+    CUDA: D % 8 == 0 and D < 128 (what ops.attention sends here); bf16
+    with 16-byte aligned rows on the tensor cores, or fp32; one launch on
+    the current stream, no synchronise. CPU: the plain version.
+    """
+    if q.device.type == "cpu":
+        return flash_attention_dt_plain(q, k, v, scale=scale)
+    _check_operands("K1", q, k, v)
+    B, Sq, H, D = q.shape
+    if D % 8 or not 8 <= D < 128:
+        raise ValueError(f"K1 takes head dims 8..120 in steps of 8, got {D}")
+    if q.dtype == torch.float32:
+        o = _launch_f32(q, k, v, scale=scale, running_max=False)
+    else:
+        if not _rows_16b_aligned(q, k, v):
+            raise ValueError("K1 needs bf16 q/k/v rows 16-byte aligned "
+                             f"(strides {q.stride()}, {k.stride()}, {v.stride()})")
+        o = torch.empty_like(q, memory_format=torch.contiguous_format)
+        err = _lib.lib().vdx_flash_attention_dt_staticmax_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            B, Sq, k.shape[1], H, D, *_strides(q, k, v, o),
+            float(scale * LOG2E), _lib.stream_ptr(q.device))
+        _lib.check(err, "K1 flash_attention_dt")
     flash_attention_dt.launches += 1
     return o
 
 
 flash_attention_dt.launches = 0
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    *, scale: float) -> torch.Tensor:
+    """K4: running-max flash attention, [B, Sq, H, D] x [B, Skv, H, D]^2
+    -> q's shape, any 1 <= D <= 256.
+
+    CUDA: bf16 on the tensor cores (16-byte row loads when D % 8 == 0 and
+    the rows are aligned, element loads otherwise), or fp32; one launch on
+    the current stream, no synchronise. CPU: the plain version.
+    """
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, scale=scale)
+    _check_operands("K4", q, k, v)
+    B, Sq, H, D = q.shape
+    if not 1 <= D <= 256:
+        raise ValueError(f"K4 takes head dims 1..256, got {D}")
+    if q.dtype == torch.float32:
+        o = _launch_f32(q, k, v, scale=scale, running_max=True)
+    else:
+        o = torch.empty_like(q, memory_format=torch.contiguous_format)
+        vec = D % 8 == 0 and _rows_16b_aligned(q, k, v)
+        err = _lib.lib().vdx_flash_attention_runmax_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            B, Sq, k.shape[1], H, D, *_strides(q, k, v, o),
+            float(scale * LOG2E), int(vec), _lib.stream_ptr(q.device))
+        _lib.check(err, "K4 flash_attention")
+    flash_attention.launches += 1
+    return o
+
+
+flash_attention.launches = 0

@@ -8,9 +8,9 @@ Implementations:
   * ``xla_bf16p`` — fp32 softmax statistics, probs rounded to bf16 between
                     the two products, normalised by the sum of the rounded
                     probs.
-  * ``flash``     — K1, the staticmax flash kernel
-                    (kernels/flash_attention.py), for D % 8 == 0, D < 128.
-                    Other head dims need K4, which is not ported yet.
+  * ``flash``     — K1, the staticmax flash kernel, for D % 8 == 0 and
+                    D < 128; K4, the running-max flash kernel, for every
+                    other head dim up to 256 (kernels/flash_attention.py).
   * ``auto``      — flash for long CUDA sequences (Sq, Skv >= 512,
                     D <= 256); xla_bf16p for maskless bf16; else xla. This
                     mirrors vdx, where "flash available" means the TPU
@@ -26,7 +26,7 @@ from typing import Optional
 
 import torch
 
-from vdx_torch.kernels.flash_attention import flash_attention_dt
+from vdx_torch.kernels.flash_attention import flash_attention, flash_attention_dt
 
 
 def _xla_attention(q, k, v, scale: float, mask: Optional[torch.Tensor]):
@@ -88,10 +88,7 @@ def dot_product_attention(
         D = q.shape[-1]
         if D % 8 == 0 and D < 128:
             return flash_attention_dt(q, k, v, scale=scale)
-        raise NotImplementedError(
-            f"head dim {D} needs K4 (vdx/kernels/flash_attention.py "
-            "flash_attention, the running-max kernel), which is not ported "
-            "yet (ROADMAP Queue 2)")
+        return flash_attention(q, k, v, scale=scale)
     if impl == "xla_bf16p":
         if mask is not None:
             raise ValueError("bf16-prob path does not support masks")

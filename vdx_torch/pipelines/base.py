@@ -8,11 +8,14 @@ vdx/pipelines/base.py).
 Text encode -> initial noise -> CFG-batched denoise loop (cond and uncond
 in ONE UNet call per step) -> frame-chunked VAE decode -> uint8. The loop
 is a Python loop of eager steps (vdx's ``lax.scan``); fp32 guidance and
-scheduler math around the compute-dtype UNet.
+scheduler math around the compute-dtype UNet. Every sampler of
+vdx_torch.schedulers runs through the one loop: ``scale_model_input`` ->
+UNet at ``tables.timesteps[i]`` -> CFG combine -> ``step``, or
+``step_multistep`` with the sampler's state in the loop's carry.
 
 What vdx's pipeline also does and this slice does not yet (PAB, skip,
-context windows, frame sharding, video2video, dispatch_steps, other
-samplers, multi-prompt batches) raises ``NotImplementedError``.
+context windows, frame sharding, video2video, dispatch_steps, multi-prompt
+batches, per-step guidance schedules) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ from vdx_torch.models.clip_text import CLIPTextConfig, CLIPTextModel
 from vdx_torch.models.tokenizer import load_tokenizer
 from vdx_torch.models.unet_motion import UNetMotion, UNetMotionConfig
 from vdx_torch.models.vae import AutoencoderKL, VAEConfig
-from vdx_torch.schedulers import ddim
+from vdx_torch.schedulers import get_sampler, is_multistep, make_tables_for
 from vdx_torch.schedulers.common import cfg_combine
 
 
@@ -98,7 +101,7 @@ class AnimateDiffPipeline:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device='cuda' but no CUDA device is available; "
                                "pass device='cpu' to run on the CPU")
-        self._check_scheduler(scheduler)
+        get_sampler(scheduler)  # ValueError on an unknown name
         self.scheduler = scheduler
         self.policy = policy
         self.tokenizer = tokenizer or load_tokenizer()
@@ -116,13 +119,6 @@ class AnimateDiffPipeline:
             self.unet.to(memory_format=torch.channels_last)
             self.vae.to(memory_format=torch.channels_last)
         self._tables = {}
-
-    @staticmethod
-    def _check_scheduler(scheduler: str) -> None:
-        if scheduler != "ddim":
-            raise NotImplementedError(
-                f"scheduler {scheduler!r} is not ported yet (ROADMAP Queue 1 "
-                "item 9); the port has 'ddim'")
 
     # ------------------------------------------------------------------
     # parameters
@@ -158,11 +154,14 @@ class AnimateDiffPipeline:
         ids = torch.as_tensor(np.asarray(ids), dtype=torch.long, device=self.device)
         return self.text_encoder(ids)
 
-    def _get_tables(self, num_steps: int) -> ddim.DDIMTables:
-        if num_steps not in self._tables:
-            self._tables[num_steps] = ddim.make_tables(num_steps,
-                                                      device=self.device)
-        return self._tables[num_steps]
+    def _get_tables(self, scheduler: str, num_steps: int):
+        """The sampler's tables on the pipeline's device, built once per
+        (sampler, step count) and cached: no per-call host work."""
+        key = (scheduler.lower(), num_steps)
+        if key not in self._tables:
+            self._tables[key] = make_tables_for(scheduler, num_steps,
+                                                device=self.device)
+        return self._tables[key]
 
     def initial_noise(self, latent_shape, seed: int) -> torch.Tensor:
         gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -171,32 +170,39 @@ class AnimateDiffPipeline:
 
     @torch.inference_mode()
     def denoise_step(self, latents: torch.Tensor, i: int, context: torch.Tensor,
-                     guidance_scale: float, guidance: bool,
-                     tables: ddim.DDIMTables) -> torch.Tensor:
-        """One CFG-batched UNet evaluation and DDIM update at step i."""
+                     guidance_scale: float, guidance: bool, scheduler: str,
+                     tables, state=None):
+        """One CFG-batched UNet evaluation and sampler update at step i
+        (a Python int: no host synchronisation). -> (latents, state);
+        ``state`` is the multistep sampler's carry, None for the others."""
+        sampler = get_sampler(scheduler)
         model_in = torch.cat([latents, latents]) if guidance else latents
-        model_in = ddim.scale_model_input(model_in, i, tables)
+        model_in = sampler.scale_model_input(model_in, i, tables)
         t_b = tables.timesteps[i].expand(model_in.shape[0])
         eps = self.unet(model_in, t_b, context)
         if guidance:
             u, c = eps.chunk(2)
             eps = cfg_combine(u, c, guidance_scale)
-        return ddim.step(latents, eps, i, tables)
+        if is_multistep(scheduler):
+            return sampler.step_multistep(latents, eps, i, state, tables)
+        return sampler.step(latents, eps, i, tables), state
 
     @torch.inference_mode()
     def _denoise(self, context: torch.Tensor, guidance_scale: float,
-                 guidance: bool, tables: ddim.DDIMTables, latent_shape,
+                 guidance: bool, scheduler: str, tables, latent_shape,
                  seed: int,
                  latents_in: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The denoise loop. ``latents_in`` replaces the seeded initial
-        noise (the tests feed the JAX program's noise)."""
-        if latents_in is None:
-            latents = self.initial_noise(latent_shape, seed) * tables.init_noise_sigma
-        else:
-            latents = latents_in.to(device=self.device, dtype=torch.float32)
+        noise, unscaled (the tests feed the JAX program's noise)."""
+        noise = (self.initial_noise(latent_shape, seed) if latents_in is None
+                 else latents_in.to(device=self.device, dtype=torch.float32))
+        latents = noise * tables.init_noise_sigma
+        state = (get_sampler(scheduler).init_state(latents)
+                 if is_multistep(scheduler) else None)
         for i in range(len(tables.timesteps)):
-            latents = self.denoise_step(latents, i, context, guidance_scale,
-                                        guidance, tables)
+            latents, state = self.denoise_step(latents, i, context,
+                                               guidance_scale, guidance,
+                                               scheduler, tables, state)
         return latents
 
     @torch.inference_mode()
@@ -243,7 +249,7 @@ class AnimateDiffPipeline:
                 "per-step guidance schedules come with ROADMAP Queue 1 item 9")
         if output_type not in ("np", "pil", "latent"):
             raise NotImplementedError(f"output_type={output_type!r}")
-        self._check_scheduler(scheduler or self.scheduler)
+        scheduler = scheduler or self.scheduler
         ds = self.vae.config.downscale
         latent_shape = (1, num_frames, height // ds, width // ds,
                         self.unet.config.in_channels)
@@ -251,9 +257,9 @@ class AnimateDiffPipeline:
         context = self.encode_prompt(prompt, negative_prompt)
         if not guidance:
             context = context[1:]
-        tables = self._get_tables(num_inference_steps)
-        latents = self._denoise(context, float(guidance_scale), guidance, tables,
-                                latent_shape, int(seed))
+        tables = self._get_tables(scheduler, num_inference_steps)
+        latents = self._denoise(context, float(guidance_scale), guidance,
+                                scheduler, tables, latent_shape, int(seed))
         if output_type == "latent":
             return PipelineOutput(frames=[], latents=latents)
         chunk = max(1, min(decode_chunk, num_frames))

@@ -8,7 +8,7 @@ vdx does); the per-step math runs in fp32 on tensors.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Tuple, Type
 
 import numpy as np
 import torch
@@ -82,6 +82,15 @@ def timesteps_trailing(num_train: int, num_steps: int) -> np.ndarray:
     an integer length (a float-step arange can emit n+1 entries)."""
     i = np.arange(num_steps, dtype=np.float64)
     return np.round(num_train - i * (num_train / num_steps)).astype(np.int32) - 1
+
+
+def on_device(cls: Type, device, **fields):
+    """A sampler's table NamedTuple with each numpy field moved to
+    ``device`` as a tensor of the same dtype (one copy each, made when the
+    tables are built); Python scalars such as ``init_noise_sigma`` stay."""
+    return cls(**{k: torch.as_tensor(v, device=device)
+                  if isinstance(v, np.ndarray) else v
+                  for k, v in fields.items()})
 
 
 def cfg_combine(uncond: torch.Tensor, cond: torch.Tensor, guidance_scale,

@@ -17,6 +17,7 @@ import torch
 from vdx_torch.schedulers.common import (
     ScheduleConfig,
     make_alphas_cumprod,
+    on_device,
     pred_x0_and_eps,
     timesteps_leading,
     timesteps_linspace,
@@ -61,13 +62,10 @@ def make_tables(num_inference_steps: int, cfg: DDIMConfig = DDIMConfig(),
     final_alpha = 1.0 if cfg.set_alpha_to_one else float(acp[0])
     a_t = acp[ts]
     a_prev = np.where(prev_ts >= 0, acp[np.clip(prev_ts, 0, T - 1)], final_alpha)
-    return DDIMTables(
-        timesteps=torch.as_tensor(ts, dtype=torch.int32, device=device),
-        alpha_prod_t=torch.as_tensor(a_t, dtype=torch.float32, device=device),
-        alpha_prod_prev=torch.as_tensor(np.asarray(a_prev, np.float32),
-                                        dtype=torch.float32, device=device),
-        init_noise_sigma=1.0,
-    )
+    return on_device(DDIMTables, device, timesteps=ts.astype(np.int32),
+                     alpha_prod_t=a_t.astype(np.float32),
+                     alpha_prod_prev=np.asarray(a_prev, np.float32),
+                     init_noise_sigma=1.0)
 
 
 def step(sample: torch.Tensor, model_output: torch.Tensor, step_index: int,
