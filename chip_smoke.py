@@ -5,14 +5,21 @@
 
 Phases, one flushed line each with its seconds:
   1. environment: torch, CUDA, nvidia-smi name and power limit
-  2. build: one nvcc call over vdx_torch/csrc/*.cu (cached by source hash)
+  2. build: one nvcc -c per vdx_torch/csrc/*.cu, started together, then a
+     link (cached by source hash)
   3. kernels against their plain PyTorch versions at the main path's
      shapes: K1 (staticmax flash attention), K2 and K3 (fused GroupNorm);
-     kernel, plain and library times (CUDA events) beside each bound
-  4. init: full-width random weights generated on the card
+     kernel, plain and library times (CUDA events) beside each bound; K3
+     at the 2560-channel GN shapes that the GN dispatch used to refuse
+     ([32,1024,2560] bf16, [32,576,2560] fp32), driven once through
+     ops.groupnorm with the counters reset
+  4. init: full-width random weights generated on the card; the seeded
+     initial noise (vdx_torch.core.rng) on the card against the CPU
   5. warm-up: the workload at 2 steps
   6. reference: one denoiser evaluation at the workload's first-step
-     input, kernel path against the plain versions swapped in
+     input, kernel path against the plain versions swapped in; forward
+     hooks keep q, k, v of the first motion-module attn1 at each level
+     and count the temporal attention calls per level
   7. the timed call: AnimateDiff text-to-video at SD-1.5 width, 16 frames
      512x512, 25 DDIM steps, CFG 7.5, bf16, through
      AnimateDiffPipeline.__call__; launch counters reset just before it,
@@ -21,11 +28,18 @@ Phases, one flushed line each with its seconds:
      at 2 steps
   9. reference at 768x768: one denoiser evaluation at the first Euler
      step's input, kernel path against the same call with only K4 swapped
-     for its plain version
+     for its plain version; q, k, v kept as in 6
  10. the 768x768 timed call: 16 frames, 25 Euler steps (the pipeline's
      default sampler), CFG 7.5, bf16; counters as in 7 (K1 at levels 0
      and 1, K4 at level 2)
  11. every sampler at 512x512, 3 steps, through __call__
+ 12. the temporal family (K6, K7, K8, K9) at the eight motion-module
+     sites kept in 6 and 9 ([P, 16, 8, D], P = 8192..288): driven once
+     per site and entry point with the counters reset (K6 through
+     ops.attention.dot_product_attention(impl="blockdiag"), K7, K8, K9
+     through their kernels' functions), then each against its plain
+     version, timed beside its bound, SDPA on the same views and the
+     eager xla_bf16p path that impl="auto" runs at those sites today
 Phase 3 also checks K4 at edge shapes (D = 20, D = 256, a ragged
 multi-tile Skv) and K1/K4 with fp32 operands. Then the kernels JSON line
 (each row's launches from the timed call of its own path), the
@@ -42,6 +56,7 @@ from __future__ import annotations
 import contextlib
 import faulthandler
 import json
+import math
 import pathlib
 import subprocess
 import sys
@@ -69,6 +84,12 @@ SAMPLER_STEPS = 3
 # different orders, ~1e-6 apart on O(1) outputs; 1e-4 leaves margin and
 # still catches any bf16 rounding (~4e-3).
 FP32_TOL = 1e-4
+# [B, S, C] of the 2560-channel GN rows (CFG batch 2 x 16 frames)
+GN2560_SHAPES = ((32, 1024, 2560), (32, 576, 2560))
+# the seeded noise on the card against the CPU: the same int64 threefry
+# bits; the fp32 erfinv polynomial's log1p and sqrt may round differently
+# on the two (a few ulps of values up to ~6, ulp 4.8e-7)
+RNG_TOL = 4e-6
 
 
 def log(msg: str) -> None:
@@ -109,7 +130,7 @@ def ptxas_summary(text: str) -> str:
     out, name, spill = [], None, ""
     for line in text.splitlines():
         # the kernel's name follows its length in the mangled symbol
-        m = re.search(r"entry function '.*?(?<=\d)((?:flash|gn)_\w+?_kernel)"
+        m = re.search(r"entry function '.*?(?<=\d)((?:flash|gn|temporal)_\w+?_kernel)"
                       r"(I[^v]*)?", line)
         if m:
             name = m.group(1) + (m.group(2) or "")
@@ -198,29 +219,36 @@ def check_kernels(dev):
     # the gate sends the 768 level-0 resnet GN (a 184 KB group slab) to K3
     if KG.k2_viable(9216, 320, 32, 2) or not KG.k3_viable(9216, 320, 32, 2):
         raise SystemExit("GN gate: [32, 9216, 320] bf16 should go to K3")
-    gn_cases = (  # (kernel, shape, eps, silu, where on its path, path, stage)
-        ("K2", (32, 4096, 320), 1e-5, True, "UNet level-0 resnet GN-SiLU",
-         "512", "denoise"),
-        ("K3", (2, 65536, 320), 1e-6, False, "level-0 motion-module GN",
-         "512", "denoise"),
-        ("K3", (8, 262144, 128), 1e-6, True, "VAE decoder GN-SiLU at 512x512",
-         "512", "decode"),
-        ("K3", (32, 9216, 320), 1e-5, True,
+    bf16, fp32 = torch.bfloat16, torch.float32
+    gn_cases = (  # (kernel, shape, dtype, eps, silu, where, path, stage)
+        ("K2", (32, 4096, 320), bf16, 1e-5, True,
+         "UNet level-0 resnet GN-SiLU", "512", "denoise"),
+        ("K3", (2, 65536, 320), bf16, 1e-6, False,
+         "level-0 motion-module GN", "512", "denoise"),
+        ("K3", (8, 262144, 128), bf16, 1e-6, True,
+         "VAE decoder GN-SiLU at 512x512", "512", "decode"),
+        ("K3", (32, 9216, 320), bf16, 1e-5, True,
          "UNet level-0 resnet GN-SiLU at 768x768", "768", "denoise"),
-        ("K3", (8, 589824, 128), 1e-6, True, "VAE decoder GN-SiLU at 768x768",
-         "768", "decode"),
+        ("K3", (8, 589824, 128), bf16, 1e-6, True,
+         "VAE decoder GN-SiLU at 768x768", "768", "decode"),
+        # the up-block-1 resnet GN, over K2's slab gate: 1024x1024 in bf16,
+        # 768x768 under the fp32 policy (both raised before K3 took 2560)
+        ("K3", GN2560_SHAPES[0], bf16, 1e-5, True,
+         "up-block-1 resnet GN-SiLU at 1024x1024", "gn2560", "dispatch"),
+        ("K3", GN2560_SHAPES[1], fp32, 1e-5, True,
+         "up-block-1 resnet GN-SiLU at 768x768, fp32", "gn2560", "dispatch"),
     )
-    for kname, (B, S, C), eps, silu, where, path, stage in gn_cases:
+    for kname, (B, S, C), dtype, eps, silu, where, path, stage in gn_cases:
         t0 = time.time()
         fn = KG.fused_group_norm if kname == "K2" else KG.fused_group_norm_2phase
-        x = randn((B, S, C), mean=0.5)
+        x = randn((B, S, C), mean=0.5, dtype=dtype)
         scale = 1.0 + 0.1 * torch.randn(C, generator=gen, device=dev)
         bias = 0.1 * torch.randn(C, generator=gen, device=dev)
         kw = dict(num_groups=32, eps=eps, with_silu=silu)
         out = fn(x, scale, bias, **kw)
         ref = KG.group_norm_moments_plain(x[:2], scale, bias, **kw)
         err = (out[:2].float() - ref.float()).abs()
-        tol = bf16_tol(ref)
+        tol = bf16_tol(ref) if dtype == bf16 else FP32_TOL
         xt = x.view(B, S, C).transpose(1, 2)  # [B, C, S] view for F.group_norm
 
         def library():
@@ -231,9 +259,11 @@ def check_kernels(dev):
         plain_ms = cuda_ms(lambda: KG.group_norm_moments_plain(x, scale, bias, **kw))
         lib_ms = cuda_ms(library)
         # ~8 fp32 operations per element (two moments, affine, SiLU)
-        b_ms, b_by = bound(8.0 * x.numel(), 2 * x.numel() * 2, H100_FP32_FLOPS)
+        b_ms, b_by = bound(8.0 * x.numel(), 2 * x.numel() * x.element_size(),
+                           H100_FP32_FLOPS)
         rows.append(dict(
-            name=f"{kname} {fn.__name__} [{B},{S},{C}] ({where})",
+            name=f"{kname} {fn.__name__} [{B},{S},{C}] {str(dtype)[6:]} "
+                 f"({where})",
             kernel=kname, path=path, stage=stage, route="cuda",
             source="vdx_torch/csrc/groupnorm.cu",
             replaces=("vdx/kernels/groupnorm.py:117" if kname == "K2"
@@ -248,7 +278,8 @@ def check_kernels(dev):
     for r in rows:
         log(f"[kernels] {r['name']}: max_abs_err={r['max_abs_err']:.3e} "
             f"mean_abs_err={r['mean_abs_err']:.3e} tol={r['tol']:.3e} "
-            f"(one bf16 ulp at max|plain|: fp32 sums in another order) "
+            f"(bf16: one ulp at max|plain|, fp32: {FP32_TOL}; fp32 sums in "
+            f"another order) "
             f"kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
             f"library_ms={r['library_ms']:.4f} ({r['library']}) "
             f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
@@ -341,13 +372,17 @@ def plain_versions(*kernels: str):
 
 
 def counters():
-    from vdx_torch.kernels.flash_attention import (flash_attention,
-                                                   flash_attention_dt)
+    from vdx_torch.kernels import flash_attention as KA
     from vdx_torch.kernels.groupnorm import (fused_group_norm,
                                              fused_group_norm_2phase)
+    from vdx_torch.kernels.temporal_attention_cp import temporal_attention_cp
 
-    return {"K1": flash_attention_dt, "K2": fused_group_norm,
-            "K3": fused_group_norm_2phase, "K4": flash_attention}
+    return {"K1": KA.flash_attention_dt, "K2": fused_group_norm,
+            "K3": fused_group_norm_2phase, "K4": KA.flash_attention,
+            "K6": KA.flash_attention_blockdiag,
+            "K7": KA.flash_attention_blockdiag_tc,
+            "K8": KA.flash_attention_blockdiag_tc2,
+            "K9": temporal_attention_cp}
 
 
 def reset_counters() -> None:
@@ -407,11 +442,34 @@ def check_frames(frames, shape, lat_finite, what: str) -> None:
         raise SystemExit(f"{what}: frames are constant or latents are not finite")
 
 
-def reference_eval(pipe, scheduler: str, hw: int, swap, per_call: dict):
+def record_temporal_sites(unet, hw: int, sites: dict, calls: dict):
+    """Forward hooks on every motion-module attention (attn1 and attn2 of
+    each TemporalBlock): count the calls per (hw, P) and keep, on the
+    host, q, k and v [P, F, H, D] of the first call at each P, which is
+    the first motion module's attn1 at that level. -> the hook handles."""
+    from vdx_torch.nn.temporal import TemporalBlock
+
+    def hook(mod, args, out):
+        x = args[0]  # [P, F, C]: norm(x) + frame PE, as attn's forward got it
+        P, F_ = x.shape[:2]
+        calls[(hw, P)] = calls.get((hw, P), 0) + 1
+        if (hw, P) not in sites:
+            sites[(hw, P)] = tuple(
+                proj(x).view(P, F_, mod.heads, mod.head_dim).cpu()
+                for proj in (mod.to_q, mod.to_k, mod.to_v))
+
+    return [attn.register_forward_hook(hook)
+            for m in unet.modules() if isinstance(m, TemporalBlock)
+            for attn in (m.attn1, m.attn2)]
+
+
+def reference_eval(pipe, scheduler: str, hw: int, swap, per_call: dict,
+                   sites: dict, calls: dict):
     """One denoiser evaluation at the first step's input of ``scheduler``
     at hw x hw, kernel path against the same call with the ``swap``
     kernels replaced by their plain versions; checks the launches of the
-    kernel call and the agreement."""
+    kernel call and the agreement. The kernel call also fills ``sites``
+    and ``calls`` (:func:`record_temporal_sites`)."""
     import torch
 
     from vdx_torch.schedulers import get_sampler
@@ -425,9 +483,12 @@ def reference_eval(pipe, scheduler: str, hw: int, swap, per_call: dict):
         model_in = get_sampler(scheduler).scale_model_input(
             torch.cat([lat, lat]), 0, tables)
         t_b = tables.timesteps[0].expand(2)
+        hooks = record_temporal_sites(pipe.unet, hw, sites, calls)
         reset_counters()
         eps_k = pipe.unet(model_in, t_b, ctx)
         launches = read_counters()
+        for h in hooks:
+            h.remove()
         with plain_versions(*swap):
             eps_p = pipe.unet(model_in, t_b, ctx)
         rel = ((eps_k.float() - eps_p.float()).norm() / eps_p.float().norm()).item()
@@ -443,6 +504,192 @@ def reference_eval(pipe, scheduler: str, hw: int, swap, per_call: dict):
     if bad:
         raise SystemExit(f"{hw}: expected launches per UNet call {per_call}, "
                          f"got {launches}")
+
+
+def drive_gn2560(dev) -> dict:
+    """The GN dispatch that a resnet block calls (ops.groupnorm
+    .group_norm_silu) once at each 2560-channel shape, the counters reset
+    just before. -> {"dispatch": launches}"""
+    import torch
+
+    from vdx_torch.ops.groupnorm import group_norm_silu
+
+    xs = [torch.randn(shape, device=dev).to(dtype)
+          for shape, dtype in zip(GN2560_SHAPES, (torch.bfloat16, torch.float32))]
+    scale, bias = torch.ones(2560, device=dev), torch.zeros(2560, device=dev)
+    torch.cuda.synchronize()
+    reset_counters()
+    for x in xs:
+        group_norm_silu(x, 32, scale, bias, 1e-5)
+    launches = read_counters()
+    torch.cuda.synchronize()
+    log(f"[gn2560] ops.groupnorm.group_norm_silu at {GN2560_SHAPES} "
+        f"(bf16, fp32): launches={launches}")
+    if launches["K3"] != 2 or launches["K2"]:
+        raise SystemExit(f"gn2560: expected K3 twice, K2 never: {launches}")
+    return {"dispatch": launches}
+
+
+def check_noise_on_card(pipe, dev) -> None:
+    """The seeded initial noise (vdx's jax.random.normal, computed by
+    vdx_torch.core.rng) on the card against the CPU, at both paths'
+    latent shapes: the bits equal, the normals within RNG_TOL."""
+    import torch
+
+    from vdx_torch.core import rng
+
+    seed = WORKLOAD["seed"]
+    for hw in (512, 768):
+        shape = (1, 16, hw // 8, hw // 8, 4)
+        bits_equal = torch.equal(rng.random_bits(seed, shape, dev).cpu(),
+                                 rng.random_bits(seed, shape))
+        noise = pipe.initial_noise(shape, seed)
+        err = (noise.cpu() - rng.normal(seed, shape)).abs().max().item()
+        log(f"[rng] seed {seed} latents {list(shape)}: card bits == cpu "
+            f"bits {bits_equal}, max |card - cpu| normal {err:.3e} "
+            f"(tol {RNG_TOL}), std {noise.std().item():.4f}")
+        if not (bits_equal and err <= RNG_TOL and noise.device.type == "cuda"):
+            raise SystemExit("the seeded noise differs between the card and the CPU")
+
+
+TEMPORAL = (  # kernel, entry point, the TPU kernel it replaces
+    ("K6", "ops.attention.dot_product_attention(impl='blockdiag') -> "
+     "flash_attention_blockdiag", "vdx/kernels/flash_attention.py:490"),
+    ("K7", "flash_attention_blockdiag_tc", "vdx/kernels/flash_attention.py:556"),
+    ("K8", "flash_attention_blockdiag_tc2", "vdx/kernels/flash_attention.py:684"),
+    ("K9", "temporal_attention_cp", "vdx/kernels/temporal_attention_cp.py:62"),
+)
+
+
+def temporal_entries(P: int, H: int, D: int) -> dict:
+    """kernel -> (its entry point, its plain version), each f(q, k, v), at
+    a [P, F, H, D] site; K9 with block_p = gcd(P, 128), vdx's 128 except
+    at the 768 level-3 site (P = 288: 32)."""
+    from vdx_torch.kernels import flash_attention as KA
+    from vdx_torch.kernels import temporal_attention_cp as KT
+    from vdx_torch.ops.attention import dot_product_attention
+
+    scale = D ** -0.5
+    block_p = math.gcd(P, 128)
+    tc_plain = lambda q, k, v: KA.flash_attention_blockdiag_tc_plain(  # noqa: E731
+        q, k, v, scale=scale)
+    return {
+        "K6": (lambda q, k, v: dot_product_attention(q, k, v, impl="blockdiag"),
+               lambda q, k, v: KA.flash_attention_blockdiag_plain(
+                   q, k, v, scale=scale)),
+        "K7": (lambda q, k, v: KA.flash_attention_blockdiag_tc(
+            q, k, v, scale=scale, heads=H), tc_plain),
+        "K8": (lambda q, k, v: KA.flash_attention_blockdiag_tc2(
+            q, k, v, scale=scale, heads=H), tc_plain),
+        "K9": (lambda q, k, v: KT.temporal_attention_cp(
+            q, k, v, scale=scale, block_p=block_p),
+            lambda q, k, v: KT.temporal_attention_cp_plain(q, k, v, scale=scale)),
+    }
+
+
+def check_temporal(dev, sites: dict, calls: dict):
+    """Phase 12. The motion-module sites kept in phases 6 and 9, on the
+    card: every entry point once per site with the counters reset (the
+    run whose counts the kernels line reports), then per site and entry
+    point the kernel against its plain version, the kernel, plain, SDPA
+    and eager xla_bf16p times, and the kernel's agreement with xla_bf16p
+    (what impl="auto" runs there). -> (rows, launches, per-UNet-call ms)"""
+    import torch
+    import torch.nn.functional as F
+
+    from vdx_torch.ops.attention import dot_product_attention
+
+    keys = sorted(sites, key=lambda key: (key[0], -key[1]))  # 512 first, L0 first
+    level = {key: sum(1 for o in keys if o[0] == key[0] and o[1] > key[1])
+             for key in keys}
+    rows, per_call = [], {}
+    with torch.inference_mode():
+        on_dev = {key: tuple(t.to(dev) for t in sites[key]) for key in keys}
+        torch.cuda.synchronize()
+        reset_counters()
+        for key in keys:
+            q, k, v = on_dev[key]
+            for call, _ in temporal_entries(q.shape[0], q.shape[2],
+                                            q.shape[3]).values():
+                call(q, k, v)
+        launches = read_counters()
+        torch.cuda.synchronize()
+        log(f"[temporal] every entry point once at each of {len(keys)} sites "
+            f"{[list(on_dev[key][0].shape) for key in keys]}: "
+            f"launches={launches}")
+        for kname, _, _ in TEMPORAL:
+            if launches[kname] != len(keys):
+                raise SystemExit(f"temporal: {kname} launched {launches[kname]} "
+                                 f"times over {len(keys)} sites")
+        for key in keys:
+            t0 = time.time()
+            hw, P = key
+            q, k, v = on_dev[key]
+            _, F_, H, D = q.shape
+            where = f"L{level[key]} motion attn1, {hw}x{hw}"
+            eager = lambda: dot_product_attention(  # noqa: E731
+                q, k, v, impl="xla_bf16p")
+            eager_out = eager()
+            eager_ms = cuda_ms(eager)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))  # [P, H, F, D]
+            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, scale=D ** -0.5))
+            site_calls = calls[key]
+            per_call.setdefault(str(hw), {"eager_xla_bf16p_ms": 0.0,
+                                          "sites": 0})
+            per_call[str(hw)]["eager_xla_bf16p_ms"] += eager_ms * site_calls
+            per_call[str(hw)]["sites"] += site_calls
+            for kname, entry, replaces in TEMPORAL:
+                call, plain = temporal_entries(P, H, D)[kname]
+                out, ref = call(q, k, v), plain(q, k, v)
+                err = (out.float() - ref.float()).abs()
+                tol = bf16_tol(ref)
+                agree = (out.float() - eager_out.float()).abs().max().item()
+                agree_tol = 4 * bf16_tol(eager_out)
+                ms = cuda_ms(lambda: call(q, k, v))
+                plain_ms = cuda_ms(lambda: plain(q, k, v), reps=3, warmup=1)
+                per_call[str(hw)][f"{kname}_ms"] = \
+                    per_call[str(hw)].get(f"{kname}_ms", 0.0) + ms * site_calls
+                # two F x F x D products; K9's arithmetic is fp32 (FMA
+                # pipes), K6-K8's operands bf16
+                peak = H100_FP32_FLOPS if kname == "K9" else H100_BF16_FLOPS
+                b_ms, b_by = bound(4.0 * P * H * F_ * F_ * D,
+                                   4 * q.numel() * q.element_size(), peak)
+                rows.append(dict(
+                    name=f"{kname} {entry.rsplit(' ', 1)[-1]} "
+                         f"[{P},{F_},{H},{D}] ({where})",
+                    kernel=kname, path="temporal", stage="sites", route="cuda",
+                    source="vdx_torch/csrc/temporal_attention.cu",
+                    replaces=replaces, max_abs_err=err.max().item(),
+                    mean_abs_err=err.mean().item(), tol=tol, ms=ms,
+                    plain_ms=plain_ms, library_ms=lib_ms,
+                    library="F.scaled_dot_product_attention on [P, H, F, D] "
+                            "views", bound_ms=b_ms, bound_by=b_by,
+                    xla_bf16p_ms=eager_ms, xla_bf16p_max_abs_diff=agree,
+                    xla_bf16p_tol=agree_tol, calls_per_unet_call=site_calls,
+                    seconds=time.time() - t0,
+                    note=(f"block_p={math.gcd(P, 128)} (128 does not divide "
+                          f"P)" if kname == "K9" and P % 128 else "")))
+                del out, ref, err
+            log(f"[temporal] {where} [{P},{F_},{H},{D}] x{site_calls} per UNet "
+                f"call: eager xla_bf16p {eager_ms:.4f} ms, SDPA {lib_ms:.4f} ms, "
+                + ", ".join(f"{r['kernel']} {r['ms']:.4f} ms (plain "
+                            f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} "
+                            f"{r['bound_by']}, err {r['max_abs_err']:.2e} tol "
+                            f"{r['tol']:.2e}, vs xla_bf16p "
+                            f"{r['xla_bf16p_max_abs_diff']:.2e} tol "
+                            f"{r['xla_bf16p_tol']:.2e})"
+                            for r in rows[-len(TEMPORAL):])
+                + f" ({time.time() - t0:.1f}s)")
+            del on_dev[key], eager_out, qt, kt, vt
+            torch.cuda.empty_cache()
+    log(f"[temporal] per UNet call (sum over its temporal sites, ms): {per_call}")
+    bad = [r["name"] for r in rows if not (r["max_abs_err"] <= r["tol"] and
+           r["xla_bf16p_max_abs_diff"] <= r["xla_bf16p_tol"])]
+    if bad:
+        raise SystemExit(f"temporal kernels disagree with their plain versions "
+                         f"or with xla_bf16p: {bad}")
+    return rows, {"sites": launches}, per_call
 
 
 def main() -> int:
@@ -492,6 +739,10 @@ def main() -> int:
     rows = check_kernels(dev)
     torch.cuda.empty_cache()
     log(f"[kernels] all within tolerance ({time.time() - t0:.1f}s)")
+    # each row's launches come from the run of its own path: a timed call
+    # ("512", "768"), the GN dispatch at 2560 channels, the temporal sites
+    runs = {"gn2560": drive_gn2560(dev)}
+    torch.cuda.empty_cache()
 
     # 4. init: the pipeline with its defaults (Euler; the 512 path asks
     # for DDIM per call)
@@ -509,6 +760,7 @@ def main() -> int:
         f"({time.time() - t0:.1f}s)")
     if pipe.scheduler != "euler" or pipe.device.type != "cuda":
         raise SystemExit("the pipeline's defaults should be euler on cuda")
+    check_noise_on_card(pipe, dev)
 
     # 5. warm-up
     t0 = time.time()
@@ -517,7 +769,9 @@ def main() -> int:
         f"({time.time() - t0:.1f}s)")
 
     # 6. reference: one denoiser evaluation, kernels against plain versions
-    reference_eval(pipe, "ddim", 512, ("K1", "K2/K3"), {"K1": 10, "K4": 0})
+    sites, site_calls = {}, {}  # the motion-module sites, for phase 12
+    reference_eval(pipe, "ddim", 512, ("K1", "K2/K3"), {"K1": 10, "K4": 0},
+                   sites, site_calls)
     torch.cuda.empty_cache()
 
     # 7. the timed call (512x512, DDIM)
@@ -540,7 +794,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 9. reference at 768x768: only K4 swapped for its plain version
-    reference_eval(pipe, pipe.scheduler, 768, ("K4",), {"K1": 10, "K4": 5})
+    reference_eval(pipe, pipe.scheduler, 768, ("K4",), {"K1": 10, "K4": 5},
+                   sites, site_calls)
     torch.cuda.empty_cache()
 
     # 10. the timed call (768x768, the default sampler: Euler)
@@ -556,10 +811,6 @@ def main() -> int:
                         frames=frames.shape[0])
     del frames
     torch.cuda.empty_cache()
-    for r in rows:
-        if paths[r["path"]]["by_stage"][r["stage"]][r["kernel"]] == 0:
-            raise SystemExit(f"{r['name']} never launched in its stage of its "
-                             f"path's timed call: {paths[r['path']]['by_stage']}")
 
     # 11. every sampler on the card: tables on the device, the loop's carry
     from vdx_torch.schedulers import _SAMPLERS
@@ -579,26 +830,46 @@ def main() -> int:
         f"finite latents, non-constant frames: {sampler_runs} "
         f"({time.time() - t0:.1f}s)")
 
+    # 12. the temporal family at the motion-module sites of 6 and 9
+    t0 = time.time()
+    t_rows, runs["temporal"], temporal_per_call = check_temporal(
+        dev, sites, site_calls)
+    rows += t_rows
+    del sites
+    torch.cuda.empty_cache()
+    log(f"[temporal] all within tolerance ({time.time() - t0:.1f}s)")
+
     # Counts are per kernel at every shape, within the row's stage of its
-    # path's timed call: the denoise loop (per step) or the VAE decode
-    # (per chunk).
+    # path's run: the denoise loop of a timed call (per step), its VAE
+    # decode (per chunk), the GN dispatch at 2560 channels, or the
+    # temporal sites (per site).
+    runs.update({p: d["by_stage"] for p, d in paths.items()})
     chunks = WORKLOAD["num_frames"] // WORKLOAD["decode_chunk"]
+    per = {"denoise": ("launches_per_step", TIMED_STEPS),
+           "decode": ("launches_per_chunk", chunks),
+           "sites": ("launches_per_site", len(t_rows) // len(TEMPORAL))}
+    for r in rows:
+        if runs[r["path"]][r["stage"]][r["kernel"]] == 0:
+            raise SystemExit(f"{r['name']} never launched in its stage of its "
+                             f"path's run: {runs[r['path']]}")
 
     def row_launches(r):
-        n = paths[r["path"]]["by_stage"][r["stage"]][r["kernel"]]
-        per = (("launches_per_step", n / TIMED_STEPS) if r["stage"] == "denoise"
-               else ("launches_per_chunk", n / chunks))
-        return {"launches": n, "path": r["path"], "stage": r["stage"],
-                per[0]: per[1]}
+        n = runs[r["path"]][r["stage"]][r["kernel"]]
+        out = {"launches": n, "path": r["path"], "stage": r["stage"]}
+        if r["stage"] in per:
+            out[per[r["stage"]][0]] = n / per[r["stage"]][1]
+        return out
 
     summary = {"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces")}
         | row_launches(r)
         | {k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                              "bound_by", "library_ms")}
+        | {k: r[k] for k in ("xla_bf16p_ms", "xla_bf16p_max_abs_diff",
+                             "calls_per_unet_call") if k in r}
         | ({"note": r["note"]} if r["note"] else {})
         for r in rows
-    ], "paths": {
+    ], "temporal_per_unet_call_ms": temporal_per_call, "paths": {
         p: {"timed_call_s": d["secs"], "frames_per_s": d["frames"] / d["secs"],
             "steps": TIMED_STEPS, "max_memory_allocated": d["peak"],
             "launches_by_stage": d["by_stage"]}

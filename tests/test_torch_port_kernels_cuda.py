@@ -1,6 +1,7 @@
-"""vdx_torch's CUDA kernels (K1, K4: flash attention; K2, K3: GroupNorm)
-against their plain PyTorch versions, on the card, plus an import-hygiene
-check that runs everywhere.
+"""vdx_torch's CUDA kernels (K1, K4: flash attention; K2, K3: GroupNorm;
+K6-K9: temporal attention) against their plain PyTorch versions, on the
+card, the fp32 policy's TF32 scope in a forward on the card, plus an
+import-hygiene check that runs everywhere.
 
 The kernel tests skip without a GPU. On the card they run with
 
@@ -76,7 +77,23 @@ FP32_CASES = [("K1", 2, 300, 300, 2, 40),
               ("K4", 1, 129, 70, 1, 256)]
 GN_CASES = [(3, 1000, 320, 32, 1e-5, True),
             (2, 777, 128, 32, 1e-6, False),
-            (2, 64, 640, 32, 1e-6, True)]
+            (2, 64, 640, 32, 1e-6, True),
+            (2, 100, 2560, 32, 1e-5, True),   # K3: two column passes
+            (1, 30, 4096, 32, 1e-5, False)]   # K3's channel cap
+# the up-block-1 resnet GN (2560 channels) over K2's slab gate: K3
+K3_C2560_CASES = [(torch.bfloat16, 32, 1024),  # 1024x1024, bf16
+                  (torch.float32, 32, 576)]    # 768x768, fp32
+# (entry, P, F, H, D, dtype): the 512x512 level-0 motion site, F = 8 / 32
+# and D = 80 / 160, fp32 operands, K9 at F = 24
+TEMPORAL_CASES = [("k6", 8192, 16, 8, 40, torch.bfloat16),
+                  ("k7", 512, 16, 8, 160, torch.bfloat16),
+                  ("k8", 300, 8, 8, 80, torch.bfloat16),
+                  ("k9", 256, 32, 8, 40, torch.bfloat16),
+                  ("k6", 64, 32, 4, 160, torch.float32),
+                  ("k7", 100, 8, 3, 40, torch.float32),
+                  ("k8", 128, 16, 8, 80, torch.float32),
+                  ("k9", 96, 24, 2, 160, torch.float32),
+                  ("k9", 64, 16, 2, 20, torch.bfloat16)]  # D % 8 != 0
 
 
 def _check_k1(cuda, B, Sq, Skv, H, D):
@@ -161,6 +178,40 @@ def _check_k1_strided_operands(cuda):
     assert (got.float() - want.float()).abs().max().item() <= _tol(want)
 
 
+def _temporal(kernel):
+    """(wrapper, plain version, extra kwargs) of K6-K9."""
+    from vdx_torch.kernels import flash_attention as KA
+    from vdx_torch.kernels import temporal_attention_cp as KT
+
+    return {"k6": (KA.flash_attention_blockdiag,
+                   KA.flash_attention_blockdiag_plain, {"block": 512}),
+            "k7": (KA.flash_attention_blockdiag_tc,
+                   KA.flash_attention_blockdiag_tc_plain, {"block": 256}),
+            "k8": (KA.flash_attention_blockdiag_tc2,
+                   KA.flash_attention_blockdiag_tc_plain, {"block": 256}),
+            "k9": (KT.temporal_attention_cp, KT.temporal_attention_cp_plain,
+                   {"block_p": 1})}[kernel]
+
+
+def _check_temporal(cuda, kernel, P, F, H, D, dtype):
+    """K6-K9 against their plain versions, on contiguous operands and on
+    q/k/v views into one fused [P, F, 3, H, D] projection."""
+    fn, plain, kw = _temporal(kernel)
+    if kernel in ("k7", "k8"):
+        kw = dict(kw, heads=H)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    qkv = _randn((P, F, 3, H, D), gen, cuda, dtype)
+    contiguous = tuple(t.contiguous() for t in qkv.unbind(dim=2))
+    for q, k, v in (contiguous, qkv.unbind(dim=2)):
+        n0 = fn.launches
+        got = fn(q, k, v, scale=D ** -0.5, **kw)
+        torch.cuda.synchronize()
+        assert fn.launches == n0 + 1 and got.dtype == dtype
+        want = plain(q, k, v, scale=D ** -0.5)
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= _tol(want), (kernel, P, F, H, D, dtype, err)
+
+
 def _check_gn(cuda, kernel, dtype, B, S, C, G, eps, silu):
     from vdx_torch.kernels import groupnorm as K
 
@@ -198,6 +249,65 @@ def _check_gn_dispatch_matches_plain_formulation(cuda, shape):
     assert (got.cpu() - want).abs().max().item() <= 1e-4
 
 
+def _check_k3_at_2560_channels(cuda, dtype, B, S):
+    """The shapes that raised before K3 took C > 2048, through the
+    dispatch, against the plain version."""
+    from vdx_torch.kernels import groupnorm as K
+
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    x = _randn((B, S, 2560), gen, cuda, dtype, mean=0.5)
+    assert not K.k2_viable(S, 2560, 32, x.element_size())
+    scale = 1.0 + 0.1 * torch.randn(2560, generator=gen, device=cuda)
+    bias = 0.1 * torch.randn(2560, generator=gen, device=cuda)
+    n0 = K.fused_group_norm_2phase.launches
+    got = K.group_norm_silu_cuda(x, 32, scale, bias, 1e-5)
+    torch.cuda.synchronize()
+    assert K.fused_group_norm_2phase.launches == n0 + 1
+    want = K.group_norm_moments_plain(x, scale, bias, num_groups=32, eps=1e-5,
+                                      with_silu=True)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= _tol(want), (dtype, B, S, err)
+
+
+def _check_tf32_off_inside_fp32_forwards_only(cuda):
+    """An fp32-policy UNet / VAE / text forward on the card runs with both
+    TF32 flags False (read by a forward hook inside the call) and gives
+    the user's flags back; a bf16 forward leaves them as they were."""
+    from vdx_torch.core.dtypes import BF16_POLICY, FP32_POLICY
+    from vdx_torch.models.clip_text import CLIPTextConfig
+    from vdx_torch.models.unet_motion import UNetMotionConfig
+    from vdx_torch.models.vae import VAEConfig
+    from vdx_torch.pipelines import AnimateDiffPipeline
+
+    def flags():
+        return (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+
+    saved = flags()
+    try:
+        for policy, inside in ((FP32_POLICY, (False, False)),
+                               (BF16_POLICY, None)):
+            pipe = AnimateDiffPipeline.with_random_params(
+                seed=0, unet_config=UNetMotionConfig.tiny(),
+                vae_config=VAEConfig.tiny(), text_config=CLIPTextConfig.tiny(),
+                policy=policy, scheduler="ddim", device=cuda)
+            seen = []
+            for m in (pipe.unet.conv_in, pipe.vae.decoder.conv_in,
+                      pipe.text_encoder.text_model.final_layer_norm):
+                m.register_forward_hook(lambda *_: seen.append(flags()))
+            for before in ((True, True), (True, False)):
+                torch.backends.cuda.matmul.allow_tf32, \
+                    torch.backends.cudnn.allow_tf32 = before
+                seen.clear()
+                pipe("a corgi", num_frames=8, height=64, width=64,
+                     num_inference_steps=1, output_type="np")
+                assert len(seen) == 3 and set(seen) == {inside or before}, seen
+                assert flags() == before
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = saved
+
+
 def _check_wrappers_raise_on_what_kernels_do_not_take(cuda):
     from vdx_torch.kernels.flash_attention import flash_attention_dt
     from vdx_torch.ops.attention import dot_product_attention
@@ -225,6 +335,30 @@ def _check_wrappers_raise_on_what_kernels_do_not_take(cuda):
     with pytest.raises(NotImplementedError):
         group_norm(x, 4, torch.ones(100, device=cuda),
                    torch.zeros(100, device=cuda))
+    x = torch.randn(1, 70000, 4104, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError):  # over K3's 4096 channels
+        group_norm(x, 8, torch.ones(4104, device=cuda),
+                   torch.zeros(4104, device=cuda))
+    # K6-K9: vdx's preconditions, then the kernel's own caps
+    t = torch.randn(8, 16, 2, 40, device=cuda, dtype=torch.bfloat16)
+    n0 = _temporal("k6")[0].launches
+    assert dot_product_attention(t, t, t, impl="blockdiag").shape == t.shape
+    assert _temporal("k6")[0].launches == n0 + 1
+    for kernel, bad, kw, match in (
+            ("k6", t[..., :20], {}, "D % 8"),
+            ("k7", t, {"heads": 4}, "heads"),
+            ("k8", t, {"heads": 2, "block": 200}, "block % 128"),
+            ("k9", t, {"block_p": 3}, "block_p"),
+            ("k6", torch.randn(2, 64, 2, 40, device=cuda), {}, "frames"),
+            ("k9", torch.randn(4, 16, 1, 168, device=cuda), {"block_p": 4},
+             "head dims"),
+            ("k7", t.half(), {"heads": 2}, None)):
+        fn = _temporal(kernel)[0]
+        with pytest.raises(TypeError if match is None else ValueError,
+                           match=match):
+            fn(bad, bad, bad, scale=1.0, **kw)
+    with pytest.raises(ValueError, match="cpu"):
+        _temporal("k9")[0](t, t.cpu(), t, block_p=1)
 
 
 # A few tests per file, each looping over its cases: pytest-xdist's
@@ -232,7 +366,7 @@ def _check_wrappers_raise_on_what_kernels_do_not_take(cuda):
 # tests keep it behind the suite's heavy files.
 @pytest.mark.cuda
 def test_k1_matches_plain(cuda):
-    """The flash attention kernels: K1 and K4 (bf16 and fp32)."""
+    """The attention kernels: K1 and K4 (bf16 and fp32), K6-K9."""
     for case in K1_CASES:
         _check_k1(cuda, *case)
     _check_k1_strided_operands(cuda)
@@ -241,6 +375,8 @@ def test_k1_matches_plain(cuda):
     _check_k4_strided_and_misaligned(cuda)
     for case in FP32_CASES:
         _check_fp32(cuda, *case)
+    for case in TEMPORAL_CASES:
+        _check_temporal(cuda, *case)
 
 
 @pytest.mark.cuda
@@ -249,9 +385,12 @@ def test_gn_kernels_match_plain(cuda):
         for dtype in (torch.bfloat16, torch.float32):
             for case in GN_CASES:
                 _check_gn(cuda, kernel, dtype, *case)
+    for case in K3_C2560_CASES:
+        _check_k3_at_2560_channels(cuda, *case)
     for shape in ((2, 4, 16, 16, 320), (2, 16, 64, 64, 64)):
         _check_gn_dispatch_matches_plain_formulation(cuda, shape)
     _check_wrappers_raise_on_what_kernels_do_not_take(cuda)
+    _check_tf32_off_inside_fp32_forwards_only(cuda)
 
 
 def _imports(path: pathlib.Path):

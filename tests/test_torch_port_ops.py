@@ -9,7 +9,12 @@
 * The plain K2/K3 (fused GroupNorm) against vdx's Pallas
   ``fused_group_norm`` / ``fused_group_norm_2phase`` in interpret mode,
   as tests/test_groupnorm_kernel.py runs them.
-* ops.attention / ops.groupnorm against vdx's ops on the CPU.
+* The plain K6, K7, K8 (block-diagonal temporal attention) and K9
+  (``temporal_attention_cp``) against vdx's Pallas kernels in interpret
+  mode, as tests/test_kernels.py runs them, with P * F not a multiple of
+  the 128-token block, at D = 160, and K9 at F = 24; fp32 and bf16.
+* ops.attention (``impl="blockdiag"`` and ``"xla_bf16p_packed"`` too) and
+  ops.groupnorm against vdx's ops on the CPU.
 
 Inputs come from numpy with a seed and go to both sides. fp32 tolerance:
 2e-5 absolute for attention (the vdx kernel tests' bar), 1e-5 for
@@ -17,20 +22,25 @@ GroupNorm (vdx's GN kernel tests' bar) — the same arithmetic summed in a
 different order. bf16 outputs: one bf16 ulp at the largest magnitude.
 """
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+from vdx.kernels import flash_attention as JK
 from vdx.kernels.flash_attention import flash_attention as jax_flash
 from vdx.kernels.flash_attention import flash_attention_dt as jax_flash_dt
+from vdx.kernels.temporal_attention_cp import temporal_attention_cp as jax_k9
 from vdx.kernels.groupnorm import fused_group_norm as jax_k2
 from vdx.kernels.groupnorm import fused_group_norm_2phase as jax_k3
 from vdx.ops import attention as JA
 from vdx.ops import groupnorm as JG
 from vdx_torch.kernels import flash_attention as KA
 from vdx_torch.kernels import groupnorm as KG
+from vdx_torch.kernels import temporal_attention_cp as KT
 from vdx_torch.ops import attention as TA
 from vdx_torch.ops import groupnorm as TG
 
@@ -99,6 +109,41 @@ def _check_flash_dispatch_against_vdx(D):
         got.numpy(), plain(_t(q), _t(k), _t(v), scale=D ** -0.5).numpy())
 
 
+def _check_temporal_plain_against_pallas(kernel, P, F, H, D, dtype):
+    """K6-K9's plain versions (the CPU path of their wrappers) against
+    vdx's Pallas kernels in interpret mode. fp32: 2e-5; bf16 operands
+    (both sides round q' and p to bf16 at the same places): one bf16 ulp
+    at the largest output magnitude."""
+    rng = np.random.default_rng(7)
+    arrs = [rng.standard_normal((P, F, H, D)).astype(np.float32)
+            for _ in range(3)]
+    jdt, tdt = ((jnp.float32, torch.float32) if dtype == "fp32"
+                else (jnp.bfloat16, torch.bfloat16))
+    jq, jk, jv = (jnp.asarray(a, jdt) for a in arrs)
+    tq, tk, tv = (_t(a).to(tdt) for a in arrs)
+    scale = D ** -0.5
+    with pltpu.force_tpu_interpret_mode():
+        if kernel == "k6":
+            want = JK.flash_attention_blockdiag(jq, jk, jv, scale=scale,
+                                                block=128)
+            got = KA.flash_attention_blockdiag(tq, tk, tv, scale=scale,
+                                               block=128)
+        elif kernel in ("k7", "k8"):
+            jfn, tfn = {"k7": (JK.flash_attention_blockdiag_tc,
+                               KA.flash_attention_blockdiag_tc),
+                        "k8": (JK.flash_attention_blockdiag_tc2,
+                               KA.flash_attention_blockdiag_tc2)}[kernel]
+            want = jfn(jq, jk, jv, scale=scale, heads=H, block=128)
+            got = tfn(tq, tk, tv, scale=scale, heads=H, block=128)
+        else:
+            want = jax_k9(jq, jk, jv, scale=scale, block_p=P, interpret=True)
+            got = KT.temporal_attention_cp(tq, tk, tv, scale=scale, block_p=P)
+    want = np.asarray(want.astype(jnp.float32))
+    atol = 2e-5 if dtype == "fp32" else _bf16_ulp_tol(want)
+    np.testing.assert_allclose(got.float().numpy(), want, atol=atol,
+                               err_msg=f"{kernel} {P, F, H, D} {dtype}")
+
+
 def _check_gn_plain_against_pallas(kernel, eps, silu):
     rng = np.random.default_rng(1)
     B, S, C, G = 2, 96, 64, 8
@@ -149,8 +194,9 @@ def _check_attention_against_vdx(impl, dtype, Sq, Skv):
     else:
         jq, jk, jv = (jnp.asarray(a) for a in arrs)
         tq, tk, tv = (_t(a) for a in arrs)
-    want = np.asarray(JA.dot_product_attention(jq, jk, jv, impl=impl)
-                      .astype(jnp.float32))
+    with pltpu.force_tpu_interpret_mode():  # blockdiag: vdx's Pallas K6
+        want = np.asarray(JA.dot_product_attention(jq, jk, jv, impl=impl)
+                          .astype(jnp.float32))
     got = TA.dot_product_attention(tq, tk, tv, impl=impl).float().numpy()
     atol = 2e-5 if dtype == np.float32 else _bf16_ulp_tol(want)
     np.testing.assert_allclose(got, want, atol=atol)
@@ -171,28 +217,96 @@ def _check_masked_attention_against_vdx():
 
 
 def _check_attention_raises_on_what_is_not_ported():
+    """Only ring attention (the parallel slice) is left."""
     q = torch.zeros(1, 16, 1, 8)
     with pytest.raises(NotImplementedError):
         TA.dot_product_attention(q, q, q, impl="ring:frames")
-    with pytest.raises(NotImplementedError):
-        TA.dot_product_attention(q, q, q, impl="blockdiag")
+    for impl in ("blockdiag", "xla_bf16p_packed"):
+        assert TA.dot_product_attention(q, q, q, impl=impl).shape == q.shape
+
+
+def _check_temporal_wrappers_keep_vdx_preconditions():
+    """K6-K9 raise where vdx's kernels assert, on every device."""
+    q = torch.zeros(4, 16, 2, 40)
+    with pytest.raises(ValueError, match="D % 8"):
+        KA.flash_attention_blockdiag(q[..., :20], q[..., :20], q[..., :20],
+                                     scale=1.0)
+    q24 = torch.zeros(4, 24, 2, 40)
+    with pytest.raises(ValueError, match=r"F \| block"):  # 512 % 24 != 0
+        TA.dot_product_attention(q24, q24, q24, impl="blockdiag")
+    with pytest.raises(ValueError, match="block % 128"):
+        KA.flash_attention_blockdiag(q, q, q, scale=1.0, block=96)
+    with pytest.raises(ValueError, match=r"one \[P, F, H, D\] shape"):
+        KA.flash_attention_blockdiag(q, q[:2], q, scale=1.0)
+    for fn in (KA.flash_attention_blockdiag_tc, KA.flash_attention_blockdiag_tc2):
+        with pytest.raises(ValueError, match="heads"):
+            fn(q, q, q, scale=1.0, heads=8)
+    with pytest.raises(ValueError, match="block_p"):
+        KT.temporal_attention_cp(q, q, q, block_p=128)  # P = 4
+    q3 = torch.zeros(4, 16, 3, 5)  # D = 5, H * D = 15
+    with pytest.raises(ValueError, match=r"H \* D % 8"):
+        KT.temporal_attention_cp(q3, q3, q3, block_p=4)
+    assert KT.temporal_attention_cp(q24, q24, q24, block_p=4).shape == q24.shape
+
+
+def _gn_sites(sizes):
+    """{(height, width): {(S, C, G)}}: every GroupNorm that the port's
+    full-width UNet (CFG batch 2 x 16 frames) and VAE decoder (8-frame
+    chunks) run at each size, traced on the meta device (shapes only, no
+    weights)."""
+    from vdx_torch.models.unet_motion import UNetMotion, UNetMotionConfig
+    from vdx_torch.models.vae import AutoencoderKL, VAEConfig
+    from vdx_torch.nn.resnet import GroupNormModule
+
+    sites = {}
+
+    def record(mod, args):
+        x = args[0]
+        sites[size].add((math.prod(x.shape[1:-1]), x.shape[-1], mod.num_groups))
+
+    with torch.device("meta"), torch.inference_mode():
+        unet, vae = UNetMotion(UNetMotionConfig()), AutoencoderKL(VAEConfig())
+        for net in (unet, vae):
+            for m in net.modules():
+                if isinstance(m, GroupNormModule):
+                    m.register_forward_pre_hook(record)
+        for size in sizes:
+            sites[size] = set()
+            h, w = size[0] // 8, size[1] // 8
+            unet(torch.empty(2, 16, h, w, 4), torch.empty(2),
+                 torch.empty(2, 77, 768))
+            vae.decode(torch.empty(8, h, w, 4))
+    return sites
 
 
 def _check_gn_gate_covers_the_main_path_shapes():
-    """Every GN shape of the SD-1.5 AnimateDiff main path (bf16) is taken
-    by K2 or K3, and the level-0 resnet, motion and VAE shapes land on
-    the kernel the dispatch documents."""
-    bf16 = 2
+    """Every GN site of the SD-1.5 AnimateDiff UNet and VAE decoder at
+    512x512, 768x768, 1024x576 and 1024x1024, in bf16 and fp32, is taken
+    by K2 or K3 (the shapes traced from the port's own modules), and the
+    level-0 resnet, motion, up-block-1 and VAE shapes land on the kernel
+    the dispatch documents."""
+    bf16, fp32 = 2, 4
     assert KG.k2_viable(4096, 320, 32, bf16)           # level-0 resnet GN
     assert not KG.k2_viable(65536, 320, 32, bf16)      # motion GN ...
     assert KG.k3_viable(65536, 320, 32, bf16)          # ... goes to K3
     assert not KG.k2_viable(262144, 128, 32, bf16)     # VAE GN at 512x512
     assert KG.k3_viable(262144, 128, 32, bf16)
-    for S, C in [(4096, 960), (4096, 640), (1024, 1920), (256, 2560),
-                 (64, 2560), (16 * 4096, 320), (16 * 1024, 640),
-                 (16 * 256, 1280), (16 * 64, 1280), (4096, 512),
-                 (16384, 512), (65536, 256), (262144, 256)]:
-        assert KG.k2_viable(S, C, 32, bf16) or KG.k3_viable(S, C, 32, bf16), (S, C)
+    # up-block-1 resnet GN: 2560 channels, over K2's slab gate at 768 in
+    # fp32 and at 1024x1024 in bf16, so K3 takes C > 2048
+    assert not KG.k2_viable(576, 2560, 32, fp32)
+    assert not KG.k2_viable(1024, 2560, 32, bf16)
+    assert KG.k3_viable(1024, 2560, 32, bf16)
+    n_sites = 0
+    sizes = ((512, 512), (768, 768), (576, 1024), (1024, 1024))
+    for (height, width), sites in _gn_sites(sizes).items():
+        assert (height * width // 1024, 2560, 32) in sites  # up block 1
+        n_sites += len(sites)
+        for S, C, G in sites:
+            for itemsize in (bf16, fp32):
+                assert (KG.k2_viable(S, C, G, itemsize)
+                        or KG.k3_viable(S, C, G, itemsize)), \
+                    (height, width, S, C, G, itemsize)
+    assert n_sites > 60
 
 
 # Three tests per file, each looping over its cases: pytest-xdist's
@@ -214,6 +328,21 @@ ATTENTION_CASES = [
     ("xla_bf16p", "bf16", 16, 16),
     ("auto", "bf16", 24, 77),      # -> xla_bf16p for maskless bf16
     ("auto", "bf16", 512, 512),    # flash-sized: still eager on the CPU
+    ("blockdiag", np.float32, 16, 16),  # K6, vdx's default block 512
+    ("blockdiag", "bf16", 16, 16),
+    ("xla_bf16p_packed", "bf16", 16, 16),  # 8 rows packed, batch padded
+    ("xla_bf16p_packed", "bf16", 24, 24),  # 5 rows packed
+    ("xla_bf16p_packed", "bf16", 16, 77),  # Skv != Sq: xla_bf16p
+]
+TEMPORAL_CASES = [  # (kernel, P, F, H, D, dtype): P * F % 128 != 0
+    ("k6", 40, 16, 2, 40, "fp32"),
+    ("k6", 12, 8, 3, 16, "bf16"),
+    ("k7", 40, 16, 2, 40, "bf16"),
+    ("k7", 12, 8, 3, 16, "fp32"),
+    ("k8", 40, 16, 2, 40, "fp32"),
+    ("k8", 8, 16, 2, 160, "bf16"),   # D = 160 (levels 2-3)
+    ("k9", 40, 16, 2, 40, "bf16"),
+    ("k9", 12, 24, 3, 16, "fp32"),   # F = 24: K9 only (F | block for K6-K8)
 ]
 
 
@@ -224,6 +353,8 @@ def test_kernel_plain_versions_match_pallas():
         _check_k4_plain_against_pallas(*case)
     for case in GN_KERNEL_CASES:
         _check_gn_plain_against_pallas(*case)
+    for case in TEMPORAL_CASES:
+        _check_temporal_plain_against_pallas(*case)
 
 
 def test_ops_match_vdx():
@@ -240,4 +371,5 @@ def test_ops_match_vdx():
 def test_ops_raise_on_what_is_not_ported_and_gate_main_path():
     _check_group_norm_defers_the_parallel_options()
     _check_attention_raises_on_what_is_not_ported()
+    _check_temporal_wrappers_keep_vdx_preconditions()
     _check_gn_gate_covers_the_main_path_shapes()

@@ -219,16 +219,25 @@ def _check_frames_within_one_level(slice_run):
 
 
 def _check_call_runs_the_slice_end_to_end(slice_run):
-    """__call__ on the port (its own seeded noise): uint8 frames of the
-    requested shape, deterministic in the seed."""
+    """__call__ on the port (its own seeded noise, no latents_in): uint8
+    frames of the requested shape, deterministic in the seed, and vdx's
+    seeded call's frames within one uint8 level: the seed gives vdx's
+    initial noise (vdx_torch.core.rng; the values within 4 fp32 ulps)."""
     tp = slice_run["tpipe"]
     kw = dict(negative_prompt=NEG, num_frames=8, height=64, width=64,
               num_inference_steps=2, guidance_scale=7.5, seed=SEED,
               output_type="np")
+    noise = tp.initial_noise(LATENT_SHAPE, SEED).numpy()
+    want_noise = slice_run["noise"]
+    assert (np.abs(noise - want_noise)
+            <= 4 * np.spacing(np.abs(want_noise))).all()
     a = tp(PROMPT, **kw).frames[0]
     b = tp(PROMPT, **kw).frames[0]
     assert a.shape == (8, 64, 64, 3) and a.dtype == np.uint8
     np.testing.assert_array_equal(a, b)
+    want = slice_run["jax_out"].frames[0]
+    diff = np.abs(a.astype(np.int16) - want.astype(np.int16))
+    assert diff.max() <= 1, diff.max()
     lat = tp(PROMPT, **dict(kw, output_type="latent")).latents
     assert tuple(lat.shape) == LATENT_SHAPE
     # the pipeline's own default sampler (Euler) through __call__

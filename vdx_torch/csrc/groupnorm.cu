@@ -29,7 +29,9 @@
 //    apply kernel over the same row chunks normalises. x is read twice
 //    (the streaming minimum for exact statistics), y written once. Rows
 //    are read as 16-byte vectors of 8 channels, neighbouring threads on
-//    neighbouring vectors.
+//    neighbouring vectors. A row of more than 256 vectors (C > 2048, the
+//    up-block-1 resnet GN at 2560 channels) is walked in column passes of
+//    256 vectors, one row per pass and thread: C <= K3_MAX_C = 4096.
 //
 // Order of summation (for the tolerance): K2 sums each channel's rows in
 // a per-thread sequential fp32 loop, then across threads by a warp
@@ -47,7 +49,7 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int K3_MAX_C = 2048;  // 8 channels per thread, 256 threads
+constexpr int K3_MAX_C = 4096;  // 8 channels per thread and column pass
 constexpr int MAX_G = 128;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -160,42 +162,56 @@ gn_group_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
 
 // ---------------------------------------------------------------- K3 --
 // Thread layout shared by the stats and apply kernels: NV = C/8 vectors
-// per row, RY = THREADS / NV row groups; thread (col, ry) handles
-// channels col*8 .. col*8+7 of rows r0 + ry, r0 + ry + RY, ...
+// per row, TN = min(NV, THREADS) threads per row, RY = THREADS / TN row
+// groups; thread (cx, ry) handles channels col*8 .. col*8+7 for col = cx,
+// cx + TN, ... < NV (one column pass unless C > 2048) of rows r0 + ry,
+// r0 + ry + RY, ...
+struct K3Layout {
+  int NV, TN, RY, cx, ry;
+  __device__ explicit K3Layout(int C) {
+    NV = C >> 3;
+    TN = min(NV, THREADS);
+    RY = THREADS / TN;
+    cx = threadIdx.x % TN;
+    ry = threadIdx.x / TN;
+  }
+};
+
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 gn_stats_kernel(const T* __restrict__ x, float* __restrict__ partials,
                 int S, int C, int G, int rows_per_chunk) {
-  __shared__ float part[2][K3_MAX_C];  // per-(row group, channel) sums
-  const int NV = C >> 3;
-  const int RY = THREADS / NV;
-  const int col = threadIdx.x % NV;
-  const int ry = threadIdx.x / NV;
+  // per-(row group, channel) sums: [2][part_n], part_n = RY * C
+  extern __shared__ float part_s[];
+  const K3Layout L(C);
+  const int part_n = L.RY * C;
+  float* part[2] = {part_s, part_s + part_n};
   const int chunk = blockIdx.x;
   const int n_chunks = gridDim.x;
   const int b = blockIdx.y;
   const int r0 = chunk * rows_per_chunk;
   const int r1 = min(S, r0 + rows_per_chunk);
-  const T* xb = x + (size_t)b * S * C + col * 8;
 
-  float s1[8], s2[8];
+  if (L.ry < L.RY) {
+    for (int col = L.cx; col < L.NV; col += L.TN) {
+      const T* xb = x + (size_t)b * S * C + col * 8;
+      float s1[8], s2[8];
 #pragma unroll
-  for (int j = 0; j < 8; ++j) { s1[j] = 0.0f; s2[j] = 0.0f; }
-  if (ry < RY) {
-    for (int r = r0 + ry; r < r1; r += RY) {
-      float f[8];
-      load8(xb + (size_t)r * C, f);
+      for (int j = 0; j < 8; ++j) { s1[j] = 0.0f; s2[j] = 0.0f; }
+      for (int r = r0 + L.ry; r < r1; r += L.RY) {
+        float f[8];
+        load8(xb + (size_t)r * C, f);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          s1[j] += f[j];
+          s2[j] += f[j] * f[j];
+        }
+      }
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        s1[j] += f[j];
-        s2[j] += f[j] * f[j];
+        part[0][L.ry * C + col * 8 + j] = s1[j];
+        part[1][L.ry * C + col * 8 + j] = s2[j];
       }
-    }
-    // part[.][ry * C + c] fits: RY * C = RY * NV * 8 <= THREADS * 8
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      part[0][ry * C + col * 8 + j] = s1[j];
-      part[1][ry * C + col * 8 + j] = s2[j];
     }
   }
   __syncthreads();
@@ -204,7 +220,7 @@ gn_stats_kernel(const T* __restrict__ x, float* __restrict__ partials,
     const int m = threadIdx.x / G;
     const int g = threadIdx.x - m * G;
     float acc = 0.0f;
-    for (int q = 0; q < RY; ++q)
+    for (int q = 0; q < L.RY; ++q)
       for (int c = g * cpg; c < (g + 1) * cpg; ++c) acc += part[m][q * C + c];
     partials[(((size_t)b * n_chunks + chunk) * 2 + m) * G + g] = acc;
   }
@@ -235,8 +251,8 @@ gn_apply_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
                 const float* __restrict__ beta, const float* __restrict__ stats,
                 T* __restrict__ y, int S, int C, int G, int rows_per_chunk,
                 int with_silu) {
-  __shared__ float sc_s[K3_MAX_C];
-  __shared__ float off_s[K3_MAX_C];
+  extern __shared__ float sc_s[];  // [C] scales, then [C] offsets
+  float* off_s = sc_s + C;
   const int b = blockIdx.y;
   const int cpg = C / G;
   for (int c = threadIdx.x; c < C; c += THREADS) {
@@ -248,29 +264,28 @@ gn_apply_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
     off_s[c] = beta[c] - mean * sc;
   }
   __syncthreads();
-  const int NV = C >> 3;
-  const int RY = THREADS / NV;
-  const int col = threadIdx.x % NV;
-  const int ry = threadIdx.x / NV;
-  if (ry >= RY) return;
-  float sc[8], off[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    sc[j] = sc_s[col * 8 + j];
-    off[j] = off_s[col * 8 + j];
-  }
+  const K3Layout L(C);
+  if (L.ry >= L.RY) return;
   const int r0 = blockIdx.x * rows_per_chunk;
   const int r1 = min(S, r0 + rows_per_chunk);
-  const size_t base = (size_t)b * S * C + col * 8;
-  for (int r = r0 + ry; r < r1; r += RY) {
-    float f[8];
-    load8(x + base + (size_t)r * C, f);
+  for (int col = L.cx; col < L.NV; col += L.TN) {
+    float sc[8], off[8];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      float v = f[j] * sc[j] + off[j];
-      f[j] = with_silu ? silu(v) : v;
+      sc[j] = sc_s[col * 8 + j];
+      off[j] = off_s[col * 8 + j];
     }
-    store8(y + base + (size_t)r * C, f);
+    const size_t base = (size_t)b * S * C + col * 8;
+    for (int r = r0 + L.ry; r < r1; r += L.RY) {
+      float f[8];
+      load8(x + base + (size_t)r * C, f);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float v = f[j] * sc[j] + off[j];
+        f[j] = with_silu ? silu(v) : v;
+      }
+      store8(y + base + (size_t)r * C, f);
+    }
   }
 }
 
@@ -304,11 +319,15 @@ cudaError_t launch_k3(const void* x, const void* gamma, const void* beta, void* 
   float* partials = static_cast<float*>(work);
   float* stats = partials + (size_t)B * n_chunks * 2 * G;
   const dim3 grid(n_chunks, B);
-  gn_stats_kernel<T><<<grid, THREADS, 0, stream>>>(
+  // RY * C floats of partials per moment: at most THREADS * 8 for one
+  // column pass, C for several
+  const int TN = C / 8 < THREADS ? C / 8 : THREADS;
+  const size_t part_bytes = 2 * sizeof(float) * (size_t)(THREADS / TN) * C;
+  gn_stats_kernel<T><<<grid, THREADS, part_bytes, stream>>>(
       static_cast<const T*>(x), partials, S, C, G, rows_per_chunk);
   gn_finalize_kernel<<<B, THREADS, 0, stream>>>(
       partials, stats, n_chunks, G, (float)S * (float)(C / G), eps);
-  gn_apply_kernel<T><<<grid, THREADS, 0, stream>>>(
+  gn_apply_kernel<T><<<grid, THREADS, 2 * sizeof(float) * C, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(gamma),
       static_cast<const float*>(beta), stats, static_cast<T*>(y), S, C, G,
       rows_per_chunk, with_silu);

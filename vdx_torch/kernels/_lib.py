@@ -50,6 +50,11 @@ _SIGNATURES = {
     # the same, then mult, running_max (K4's form, else K1's), stream
     "vdx_flash_attention_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I]
     + [_L] * 12 + [_F, _I, _P],
+    # q, k, v, o, P, F, H, D, q strides (p, f, h), k strides, v strides,
+    # o strides, mult, bf16, vec (16-byte row loads), stream
+    **{name: [_P, _P, _P, _P, _I, _I, _I, _I] + [_L] * 12 + [_F, _I, _I, _P]
+       for name in ("vdx_temporal_attention_blockdiag",
+                    "vdx_temporal_attention_tc", "vdx_temporal_attention_cp")},
     # x, scale, bias, y, B, S, C, G, eps, silu, stream
     "vdx_group_norm_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     "vdx_group_norm_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],

@@ -30,7 +30,9 @@ from vdx_torch.kernels import _lib
 # leaves two blocks resident per SM (228 KB per SM on the H100).
 K2_SMEM_BYTES = 100 * 1024
 K2_MAX_GROUP_CHANNELS = 256  # one thread per channel of the group
-K3_MAX_CHANNELS = 2048       # 8 channels per thread, 256 threads
+# 8 channels per thread in column passes of 256 threads (two passes for
+# the up-block-1 resnet GN's 2560 channels)
+K3_MAX_CHANNELS = 4096
 K3_MAX_GROUPS = 128
 # K3 row chunks: enough (chunk, sample) blocks to put two on every SM.
 _K3_TARGET_BLOCKS = 2 * 132

@@ -14,7 +14,7 @@ import dataclasses
 import torch
 from torch import nn
 
-from vdx_torch.core.dtypes import DEFAULT_POLICY, Policy
+from vdx_torch.core.dtypes import DEFAULT_POLICY, Policy, exact_fp32_method
 from vdx_torch.nn.layers import Dense
 from vdx_torch.nn.transformer import LayerNormF32
 from vdx_torch.ops.attention import dot_product_attention
@@ -122,6 +122,7 @@ class CLIPTextModel(nn.Module):
         self.policy = policy
         self.text_model = _TextModel(config, policy)
 
+    @exact_fp32_method
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
         """[B, 77] token ids -> [B, 77, hidden] final hidden states."""
         tm = self.text_model

@@ -19,7 +19,7 @@ from typing import Tuple
 import torch
 from torch import nn
 
-from vdx_torch.core.dtypes import DEFAULT_POLICY, Policy
+from vdx_torch.core.dtypes import DEFAULT_POLICY, Policy, exact_fp32_method
 from vdx_torch.nn.embeddings import TimestepEmbedding, get_timestep_embedding
 from vdx_torch.nn.layers import Conv2d
 from vdx_torch.nn.resnet import (Downsample2D, GroupNormModule, ResnetBlock2D,
@@ -156,6 +156,7 @@ class UNetMotion(nn.Module):
                                              policy=policy)
         self.conv_out = Conv2d(c0, cfg.out_channels, 3, padding=1, policy=policy)
 
+    @exact_fp32_method
     def forward(self, sample: torch.Tensor, timestep: torch.Tensor,
                 context: torch.Tensor) -> torch.Tensor:
         """sample [B, F, H, W, C_in], timestep scalar or [B], context

@@ -16,7 +16,7 @@ from typing import Tuple
 import torch
 from torch import nn
 
-from vdx_torch.core.dtypes import DEFAULT_POLICY, Policy
+from vdx_torch.core.dtypes import DEFAULT_POLICY, Policy, exact_fp32_method
 from vdx_torch.nn.layers import Conv2d, Dense
 from vdx_torch.nn.resnet import GroupNormModule, ResnetBlock2D, Upsample2D
 from vdx_torch.ops.attention import dot_product_attention
@@ -138,6 +138,7 @@ class AutoencoderKL(nn.Module):
                                       config.latent_channels, 1, policy=policy)
         self.decoder = Decoder(config, policy)
 
+    @exact_fp32_method
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         """Pre-scaled latents [B, h, w, 4] -> images [B, H, W, 3] in [-1, 1]."""
         z = (z / self.config.scaling_factor).to(self.policy.compute_dtype)

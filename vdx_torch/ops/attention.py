@@ -11,10 +11,19 @@ Implementations:
   * ``flash``     — K1, the staticmax flash kernel, for D % 8 == 0 and
                     D < 128; K4, the running-max flash kernel, for every
                     other head dim up to 256 (kernels/flash_attention.py).
+  * ``blockdiag`` — K6, per-position attention over a short sequence
+                    (the motion modules' F frames) with vdx's default
+                    block of 512 (kernels/flash_attention.py).
+  * ``xla_bf16p_packed`` — vdx's eager packed short-sequence path:
+                    128 // S batch rows packed into one block-diagonal
+                    score matrix, probs in bf16; exact against
+                    ``xla_bf16p``. Plain PyTorch, as vdx's is XLA, and
+                    dispatched only when asked for.
   * ``auto``      — flash for long CUDA sequences (Sq, Skv >= 512,
-                    D <= 256); xla_bf16p for maskless bf16; else xla. This
-                    mirrors vdx, where "flash available" means the TPU
-                    backend: here it means a CUDA tensor.
+                    D <= 256); xla_bf16p for maskless bf16 (the temporal
+                    sites included, as vdx); else xla. This mirrors vdx,
+                    where "flash available" means the TPU backend: here it
+                    means a CUDA tensor.
 
 The eager paths compute both products in fp32 from the stored operands, as
 vdx's einsums accumulate in fp32 (``preferred_element_type``).
@@ -26,7 +35,9 @@ from typing import Optional
 
 import torch
 
-from vdx_torch.kernels.flash_attention import flash_attention, flash_attention_dt
+from vdx_torch.kernels.flash_attention import (flash_attention,
+                                               flash_attention_blockdiag,
+                                               flash_attention_dt)
 
 
 def _xla_attention(q, k, v, scale: float, mask: Optional[torch.Tensor]):
@@ -50,6 +61,30 @@ def _xla_attention_bf16probs(q, k, v, scale: float):
     l = pf.sum(dim=-1, keepdim=True)  # [b, h, q, 1]
     out = torch.matmul(pf, vt.float()) / l
     return out.to(q.dtype).transpose(1, 2)
+
+
+def _xla_attention_bf16probs_packed(q, k, v, scale: float, pack: int):
+    """vdx's packed short-sequence attention: ``pack`` batch rows share
+    one [pack*S, pack*S] score matrix under a block-diagonal mask (-1e30
+    off the blocks, so their probs are exactly 0), probs rounded to bf16,
+    fp32 statistics; the batch is zero-padded to a multiple of ``pack``
+    and trimmed after."""
+    B, S, H, D = q.shape
+    G = -(-B // pack)
+    if G * pack != B:
+        pad = (0, 0, 0, 0, 0, 0, 0, G * pack - B)
+        q, k, v = (torch.nn.functional.pad(t, pad) for t in (q, k, v))
+    qg, kg, vg = (t.reshape(G, pack, S, H, D) for t in (q, k, v))
+    scores = torch.einsum("gpshd,gqthd->ghpsqt", qg.float(), kg.float()) * scale
+    blockdiag = torch.eye(pack, dtype=torch.bool, device=q.device)
+    scores = torch.where(blockdiag[None, None, :, None, :, None], scores,
+                         torch.tensor(-1e30, device=q.device))
+    m = scores.amax(dim=(4, 5), keepdim=True)
+    p = torch.exp(scores - m).to(torch.bfloat16).float()
+    l = p.sum(dim=(4, 5))  # [G, H, pack, S]
+    out = torch.einsum("ghpsqt,gqthd->gpshd", p, vg.float())
+    out = out / l.permute(0, 2, 3, 1)[..., None]
+    return out.to(q.dtype).reshape(G * pack, S, H, D)[:B]
 
 
 def _should_use_flash(q, k) -> bool:
@@ -95,7 +130,14 @@ def dot_product_attention(
         return _xla_attention_bf16probs(q, k, v, scale)
     if impl == "xla":
         return _xla_attention(q, k, v, scale, mask)
-    if impl in ("blockdiag", "xla_bf16p_packed"):
-        raise NotImplementedError(
-            f"impl={impl!r} is not ported yet (ROADMAP Queue 2, K6-K9)")
+    if impl == "blockdiag":
+        return flash_attention_blockdiag(q, k, v, scale=scale)
+    if impl == "xla_bf16p_packed":
+        if mask is not None:
+            raise ValueError("packed path does not support masks")
+        S = q.shape[1]
+        pack = max(1, 128 // S)
+        if pack == 1 or k.shape[1] != S:
+            return _xla_attention_bf16probs(q, k, v, scale)
+        return _xla_attention_bf16probs_packed(q, k, v, scale, pack)
     raise ValueError(f"unknown attention impl {impl!r}")

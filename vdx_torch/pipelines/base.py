@@ -5,13 +5,18 @@ vdx/pipelines/base.py).
          num_inference_steps=25, height=512, width=512, seed=42)
     -> output.frames[0]
 
-Text encode -> initial noise -> CFG-batched denoise loop (cond and uncond
-in ONE UNet call per step) -> frame-chunked VAE decode -> uint8. The loop
-is a Python loop of eager steps (vdx's ``lax.scan``); fp32 guidance and
-scheduler math around the compute-dtype UNet. Every sampler of
-vdx_torch.schedulers runs through the one loop: ``scale_model_input`` ->
-UNet at ``tables.timesteps[i]`` -> CFG combine -> ``step``, or
-``step_multistep`` with the sampler's state in the loop's carry.
+Text encode -> initial noise (vdx's ``jax.random.normal(PRNGKey(seed))``,
+computed by vdx_torch.core.rng on the pipeline's device) -> CFG-batched
+denoise loop (cond and uncond in ONE UNet call per step) -> frame-chunked
+VAE decode -> uint8. The loop is a Python loop of eager steps (vdx's
+``lax.scan``); fp32 guidance and scheduler math around the compute-dtype
+UNet. Every sampler of vdx_torch.schedulers runs through the one loop:
+``scale_model_input`` -> UNet at ``tables.timesteps[i]`` -> CFG combine ->
+``step``, or ``step_multistep`` with the sampler's state in the loop's
+carry. Under an fp32 policy on CUDA every matmul and convolution runs in
+fp32, not TF32: the text encoder, UNet and VAE forwards each turn TF32 off
+while they run (core.dtypes.exact_fp32); the glue between them is
+elementwise.
 
 What vdx's pipeline also does and this slice does not yet (PAB, skip,
 context windows, frame sharding, video2video, dispatch_steps, multi-prompt
@@ -26,6 +31,7 @@ from typing import Any, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from vdx_torch.core import rng
 from vdx_torch.core.dtypes import DEFAULT_POLICY, Policy
 from vdx_torch.models.clip_text import CLIPTextConfig, CLIPTextModel
 from vdx_torch.models.tokenizer import load_tokenizer
@@ -164,9 +170,9 @@ class AnimateDiffPipeline:
         return self._tables[key]
 
     def initial_noise(self, latent_shape, seed: int) -> torch.Tensor:
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        return torch.randn(latent_shape, generator=gen, device=self.device,
-                           dtype=torch.float32)
+        """vdx's initial noise for ``seed``: the same fp32 values on the
+        CPU and on the card (vdx_torch.core.rng)."""
+        return rng.normal(seed, latent_shape, self.device)
 
     @torch.inference_mode()
     def denoise_step(self, latents: torch.Tensor, i: int, context: torch.Tensor,
