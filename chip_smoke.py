@@ -40,8 +40,18 @@ Phases, one flushed line each with its seconds:
      through their kernels' functions), then each against its plain
      version, timed beside its bound, SDPA on the same views and the
      eager xla_bf16p path that impl="auto" runs at those sites today
+ 13. the attention forms: flash_attention_dt in vdx's exp_impl forms
+     exp, exp2, fastexp2, noexp, mxu_only (K1') and staticaug (K5) at
+     [32,4096,8,40] and [32,576,8,160], and staticmax at [32,576,8,160]
+     (K1 at D >= 128, the forms kernels' static mode, counted apart from
+     K1's WMMA kernel as "K1 static"), each driven through the chained loop of the
+     attention micro-benchmark (scripts/bench_attn_torch.py, K = 16) with
+     the counters reset, then against its plain version, timed beside its
+     bound and a library call (SDPA; two matmuls for mxu_only; none for
+     noexp)
 Phase 3 also checks K4 at edge shapes (D = 20, D = 256, a ragged
-multi-tile Skv) and K1/K4 with fp32 operands. Then the kernels JSON line
+multi-tile Skv), K1/K4 with fp32 operands, and every exp_impl form in
+bf16 and fp32 at ragged key counts. Then the kernels JSON line
 (each row's launches from the timed call of its own path), the
 nvidia-smi line and, last, the contract line {"ok": true, "device": ...}.
 
@@ -55,12 +65,14 @@ from __future__ import annotations
 
 import contextlib
 import faulthandler
+import importlib.util
 import json
 import math
 import pathlib
 import subprocess
 import sys
 import time
+from functools import partial
 
 # a hang ends with a stack trace well before any outer time limit; the
 # whole run, build included, takes under two minutes on an H100
@@ -174,9 +186,11 @@ def check_kernels(dev):
         ("K1", (32, 2304, 8, 80), "768", "level-1 self-attn", True),
         ("K4", (32, 576, 8, 160), "768", "level-2 self-attn", False),
     )
+    static = dict(exp_impl="staticmax")
     for kname, (B, S, H, D), path, site, one_slice in attn_cases:
         t0 = time.time()
-        fn, plain = ((KA.flash_attention_dt, KA.flash_attention_dt_plain)
+        fn, plain = ((partial(KA.flash_attention_dt, **static),
+                      partial(KA.flash_attention_dt_plain, **static))
                      if kname == "K1" else
                      (KA.flash_attention, KA.flash_attention_plain))
         q, k, v = (randn((B, S, H, D)) for _ in range(3))
@@ -293,8 +307,11 @@ def check_kernels(dev):
 
 def check_attention_edges(dev):
     """K4 at shapes off the main path (D % 8 != 0, D = 256, a multi-tile
-    ragged Skv) in bf16, and K1/K4 with fp32 operands, each against its
-    plain version; -> the names of the cases that disagree."""
+    ragged Skv) in bf16, K1/K4 with fp32 operands, and every form of
+    flash_attention_dt in bf16 and fp32 at a ragged Skv (noexp also with
+    Skv not a multiple of block_k, and 20 32-key tiles a period at
+    D = 256), each against its plain version; -> the names of the cases
+    that disagree."""
     import torch
 
     from vdx_torch.kernels import flash_attention as KA
@@ -309,9 +326,11 @@ def check_attention_edges(dev):
         ("K4", torch.float32, 2, 576, 576, 8, 160),
         ("K4", torch.float32, 2, 300, 300, 2, 20),
     )
+    static = dict(exp_impl="staticmax")
     bad = []
     for kname, dtype, B, Sq, Skv, H, D in cases:
-        fn, plain = ((KA.flash_attention_dt, KA.flash_attention_dt_plain)
+        fn, plain = ((partial(KA.flash_attention_dt, **static),
+                      partial(KA.flash_attention_dt_plain, **static))
                      if kname == "K1" else
                      (KA.flash_attention, KA.flash_attention_plain))
         q, k, v = (torch.randn((B, S, H, D), generator=gen, device=dev).to(dtype)
@@ -325,6 +344,30 @@ def check_attention_edges(dev):
         log(f"[kernels] edge {name}: max_abs_err={err:.3e} tol={tol:.3e} "
             + ("(fp32: sums of up to 10^3 products in another order)" if fp32
                else "(one bf16 ulp at max|plain|)"))
+        if not err <= tol:
+            bad.append(name)
+    form_cases = [(form, dtype, 2, Sq, Skv, 2, D, 1024)
+                  for form in KA.EXP_IMPLS
+                  for dtype in (torch.bfloat16, torch.float32)
+                  for Sq, Skv, D in ((300, 300, 40), (300, 700, 160))]
+    form_cases += [("noexp", torch.bfloat16, 2, 300, 300, 2, 40, 128),
+                   ("noexp", torch.bfloat16, 2, 300, 1100, 2, 256, 1024)]
+    # Skv a multiple of the period: no padded keys, several periods, at
+    # each instance (D <= 128, 160, 256)
+    form_cases += [(form, dtype, 2, 300, 1024, 2, D, 256)
+                   for form in ("fastexp2", "noexp")
+                   for dtype in (torch.bfloat16, torch.float32)
+                   for D in (40, 160, 256)]
+    for form, dtype, B, Sq, Skv, H, D, block_k in form_cases:
+        q, k, v = (torch.randn((B, S, H, D), generator=gen, device=dev).to(dtype)
+                   for S in (Sq, Skv, Skv))
+        kw = dict(scale=D ** -0.5, exp_impl=form, block_k=block_k)
+        out = KA.flash_attention_dt(q, k, v, **kw)
+        err, _, tol, mag = KA.plain_err_tol(out, q, k, v, **kw)
+        name = (f"{form} ({KA.FORM_KERNEL[form]}) {str(dtype)[6:]} "
+                f"[{B},{Sq}/{Skv},{H},{D}] block_k {block_k}")
+        log(f"[kernels] edge {name}: max_abs_err={err:.3e} tol={tol:.3e} "
+            f"max|plain|={mag:.3e} (KA.plain_err_tol)")
         if not err <= tol:
             bad.append(name)
     return bad
@@ -343,10 +386,12 @@ def plain_versions(*kernels: str):
                                                    flash_attention_plain)
     from vdx_torch.kernels.groupnorm import group_norm_moments_plain
 
-    def attn(q, k, v, *, scale):  # batch slices keep the score tensor small
+    def attn(q, k, v, *, scale, exp_impl, block_k, **_):
+        # batch slices keep the score tensor small
         return torch.cat([
             flash_attention_dt_plain(q[i:i + 2], k[i:i + 2], v[i:i + 2],
-                                     scale=scale)
+                                     scale=scale, exp_impl=exp_impl,
+                                     block_k=block_k)
             for i in range(0, q.shape[0], 2)])
 
     def gn(x, num_groups, scale, bias, eps=1e-5, with_silu=True):
@@ -385,13 +430,24 @@ def counters():
             "K9": temporal_attention_cp}
 
 
+def form_counters() -> dict:
+    """flash_attention_dt's forms-kernel counts: K1' per form, K5, and
+    staticmax as "K1 static" (K1's WMMA kernel counts apart, as "K1")."""
+    from vdx_torch.kernels.flash_attention import flash_attention_dt
+
+    return flash_attention_dt.form_launches
+
+
 def reset_counters() -> None:
     for fn in counters().values():
         fn.launches = 0
+    forms = form_counters()
+    for name in forms:
+        forms[name] = 0
 
 
 def read_counters() -> dict:
-    return {k: fn.launches for k, fn in counters().items()}
+    return {k: fn.launches for k, fn in counters().items()} | dict(form_counters())
 
 
 def timed_call(pipe, label: str, **kw):
@@ -431,6 +487,16 @@ def timed_call(pipe, label: str, **kw):
         f"min={int(frames.min())} max={int(frames.max())} "
         f"mean={float(frames.mean()):.2f} latents_finite={lat_finite}")
     return secs, frames, lat_finite, by_stage, peak
+
+
+def check_no_forms(by_stage: dict, what: str) -> None:
+    """The pipeline's attention is K1's WMMA kernel and K4 only: no K1',
+    K5 or forms-kernel staticmax ("K1 static") launch in a timed call, so
+    the K1 count proves which kernel ran."""
+    ran = {n: d[n] for d in by_stage.values() for n in form_counters() if d[n]}
+    if ran:
+        raise SystemExit(f"{what}: forms-kernel launches in the pipeline: "
+                         f"{ran}")
 
 
 def check_frames(frames, shape, lat_finite, what: str) -> None:
@@ -692,6 +758,116 @@ def check_temporal(dev, sites: dict, calls: dict):
     return rows, {"sites": launches}, per_call
 
 
+# phase 13: the attention micro-benchmark's shapes, [32, 4096, 8, 40] (the
+# 512 level-0 self-attention, scripts/bench_attention.py's) and the 768
+# level-2 [32, 576, 8, 160], every K1'/K5 form at both, staticmax at D >= 128
+FORM_SHAPES = ((32, 4096, 8, 40), (32, 576, 8, 160))
+FORM_ROWS = [(form, shape) for shape in FORM_SHAPES
+             for form in ("exp", "exp2", "fastexp2", "staticaug", "noexp",
+                          "mxu_only")] + [("staticmax", FORM_SHAPES[1])]
+BENCH_ITERS = 16  # vdx's K in scripts/bench_attention.py
+
+
+def load_bench():
+    """scripts/bench_attn_torch.py as a module (its make_fn and chain)."""
+    spec = importlib.util.spec_from_file_location(
+        "bench_attn_torch", ROOT / "scripts" / "bench_attn_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def check_forms(dev):
+    """Phase 13. Each row of FORM_ROWS: the micro-benchmark's chained loop
+    (spec dt:1024:1024:<form>, K = 16) on fresh seeded bf16 inputs with
+    the counters reset, the run whose counts the kernels line reports;
+    then flash_attention_dt in that form against its plain version (same
+    block_k) on the first two batch entries, and the kernel, plain and
+    library times beside the bound. -> (rows, {stage: launches})"""
+    import torch
+
+    from vdx_torch.kernels import flash_attention as KA
+
+    bench = load_bench()
+    rows, runs = [], {}
+    for i, (form, (B, S, H, D)) in enumerate(FORM_ROWS):
+        t0 = time.time()
+        kname = KA.FORM_KERNEL[form]
+        scale = D ** -0.5
+        q, k, v = bench.fresh((B, S, H, D), S, 100 + i, dev, torch.bfloat16)
+        fn = bench.make_fn(f"dt:1024:1024:{form}", scale)
+        torch.cuda.synchronize()
+        reset_counters()
+        looped = bench.chain(fn, q, k, v, BENCH_ITERS)
+        launches = read_counters()
+        torch.cuda.synchronize()
+        stage = f"{form} [{B},{S},{H},{D}]"
+        runs[stage] = launches
+        others = {n: c for n, c in launches.items() if n != kname and c}
+        if launches[kname] != BENCH_ITERS or others:
+            raise SystemExit(f"forms: the loop of {stage} launched {launches}, "
+                             f"expected {kname} {BENCH_ITERS} times, no other")
+        kw = dict(scale=scale, block_k=1024, exp_impl=form)
+        out = KA.flash_attention_dt(q, k, v, **kw)
+        err, mean_err, tol, mag = KA.plain_err_tol(out[:2], q[:2], k[:2],
+                                                   v[:2], **kw)
+        finite = bool(torch.isfinite(looped).all() and torch.isfinite(out).all())
+        del looped
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        if form == "mxu_only":  # the scores rounded to bf16 by the matmul
+            qf = (q.float() * (scale * KA.LOG2E)).to(q.dtype).transpose(1, 2)
+            library = "two torch.matmul, bf16 scores"
+            lib_fn = lambda: torch.matmul(torch.matmul(qf, kt.transpose(-1, -2)),  # noqa: E731
+                                          vt)
+        elif form == "noexp":
+            library, lib_fn = "none (no library call computes noexp)", None
+        else:
+            library = "F.scaled_dot_product_attention"
+            lib_fn = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, scale=scale)
+
+        def plain_slice():  # one two-entry slice, timed and scaled
+            KA.flash_attention_dt_plain(q[:2], k[:2], v[:2], **kw)
+
+        ms = cuda_ms(lambda: KA.flash_attention_dt(q, k, v, **kw))
+        plain_ms = cuda_ms(plain_slice, reps=3, warmup=1) * (B // 2)
+        lib_ms = cuda_ms(lib_fn, reps=5) if lib_fn else None
+        b_ms, b_by = bound(4.0 * B * H * S * S * D, 4 * q.numel() * 2,
+                           H100_BF16_FLOPS)
+        note = "plain_ms: one two-entry slice timed, times 16"
+        if form in ("fastexp2", "noexp"):
+            note += ("; the kernel also sweeps q.k once more for each "
+                     "1024-key period's max (2*B*H*S*S*D operations more, "
+                     "the form's own cost, not in the bound)")
+        rows.append(dict(
+            name=f"{kname} flash_attention_dt exp_impl={form} "
+                 f"[{B},{S},{H},{D}] (attention micro-benchmark, "
+                 f"dt:1024:1024:{form})",
+            kernel=kname, path="forms", stage=stage, route="cuda",
+            source="vdx_torch/csrc/flash_attention_runmax.cu",
+            replaces=("vdx/kernels/flash_attention.py:393" if form == "staticaug"
+                      else "vdx/kernels/flash_attention.py:204"),
+            max_abs_err=err, mean_abs_err=mean_err, tol=tol, ms=ms,
+            plain_ms=plain_ms, library_ms=lib_ms, library=library,
+            bound_ms=b_ms, bound_by=b_by, seconds=time.time() - t0,
+            note=note))
+        r = rows[-1]
+        log(f"[forms] {r['name']}: launches {launches[kname]} in the loop "
+            f"(K={BENCH_ITERS}) max_abs_err={err:.3e} "
+            f"mean_abs_err={mean_err:.3e} tol={tol:.3e} max|plain|={mag:.3e} "
+            f"(one bf16 ulp at max|plain|, KA.plain_err_tol) "
+            f"finite={finite} kernel_ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} library_ms="
+            f"{'n/a' if lib_ms is None else f'{lib_ms:.4f}'} ({library}) "
+            f"bound_ms={b_ms:.4f} ({b_by}) ({r['seconds']:.1f}s)")
+        if not (finite and err <= tol):
+            raise SystemExit(f"forms: {r['name']} disagrees with its plain "
+                             f"version or is not finite")
+        del q, k, v, qt, kt, vt, out
+        torch.cuda.empty_cache()
+    return rows, runs
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(HANG_BUDGET_S, exit=True)
     t_start = time.time()
@@ -781,6 +957,7 @@ def main() -> int:
     if by_stage["denoise"]["K1"] != 10 * TIMED_STEPS or by_stage["decode"]["K1"]:
         raise SystemExit(f"launches {by_stage}: expected K1 {10 * TIMED_STEPS} "
                          "times in the denoise loop (10 per UNet call), none after")
+    check_no_forms(by_stage, "512x512 DDIM")
     check_frames(frames, (16, 512, 512, 3), lat_finite, "512x512 DDIM")
     paths = {"512": dict(secs=secs, by_stage=by_stage, peak=peak,
                          frames=frames.shape[0])}
@@ -806,6 +983,7 @@ def main() -> int:
            for k, n in want.items()):
         raise SystemExit(f"launches {by_stage}: expected {want} in the denoise "
                          "loop (K1 10, K4 5 per UNet call), none in the decode")
+    check_no_forms(by_stage, "768x768 Euler")
     check_frames(frames, (16, 768, 768, 3), lat_finite, "768x768 Euler")
     paths["768"] = dict(secs=secs, by_stage=by_stage, peak=peak,
                         frames=frames.shape[0])
@@ -839,10 +1017,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"[temporal] all within tolerance ({time.time() - t0:.1f}s)")
 
+    # 13. the attention forms: every K1'/K5 form through the
+    # micro-benchmark's loop (scripts/bench_attn_torch.py)
+    t0 = time.time()
+    f_rows, runs["forms"] = check_forms(dev)
+    rows += f_rows
+    torch.cuda.empty_cache()
+    log(f"[forms] all within tolerance ({time.time() - t0:.1f}s)")
+
     # Counts are per kernel at every shape, within the row's stage of its
     # path's run: the denoise loop of a timed call (per step), its VAE
-    # decode (per chunk), the GN dispatch at 2560 channels, or the
-    # temporal sites (per site).
+    # decode (per chunk), the GN dispatch at 2560 channels, the temporal
+    # sites (per site), or the micro-benchmark's loop of its form and shape.
     runs.update({p: d["by_stage"] for p, d in paths.items()})
     chunks = WORKLOAD["num_frames"] // WORKLOAD["decode_chunk"]
     per = {"denoise": ("launches_per_step", TIMED_STEPS),

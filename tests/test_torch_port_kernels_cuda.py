@@ -1,7 +1,8 @@
-"""vdx_torch's CUDA kernels (K1, K4: flash attention; K2, K3: GroupNorm;
-K6-K9: temporal attention) against their plain PyTorch versions, on the
-card, the fp32 policy's TF32 scope in a forward on the card, plus an
-import-hygiene check that runs everywhere.
+"""vdx_torch's CUDA kernels (K1, K1', K4, K5: flash attention in every
+``exp_impl`` form; K2, K3: GroupNorm; K6-K9: temporal attention) against
+their plain PyTorch versions, on the card, the fp32 policy's TF32 scope
+in a forward on the card, plus an import-hygiene check that runs
+everywhere.
 
 The kernel tests skip without a GPU. On the card they run with
 
@@ -18,11 +19,19 @@ running max rescales acc and l tile by tile where the plain version takes
 one max over the row: the same function up to fp32 rounding, and p is
 rounded to bf16 after the rescale in the kernel but before it in the
 plain version, which moves each weight by under 2^-9 relative, averaging
-out far below one output ulp.
+out far below one output ulp. The same holds for the exp and exp2 forms
+(the kernel rescales per key tile, vdx and the plain version per key
+block); fastexp2 and noexp rescale per key block in the kernel too, since
+their outputs depend on it. mxu_only does not normalise, so its fp32 bar
+scales with max|plain| (1e-4 per unit of output). noexp's bf16 bar has
+no floor at 1 (padded keys shrink its outputs to about 1e-30), and its l
+may nearly cancel, so in fp32 it is held to its recurrence in float64
+(kernels.flash_attention.plain_err_tol, which chip_smoke.py uses too).
 """
 
 import ast
 import pathlib
+from functools import partial
 
 import pytest
 import torch
@@ -83,6 +92,22 @@ GN_CASES = [(3, 1000, 320, 32, 1e-5, True),
 # the up-block-1 resnet GN (2560 channels) over K2's slab gate: K3
 K3_C2560_CASES = [(torch.bfloat16, 32, 1024),  # 1024x1024, bf16
                   (torch.float32, 32, 576)]    # 768x768, fp32
+FORMS = ("exp", "exp2", "fastexp2", "staticmax", "staticaug", "noexp",
+         "mxu_only")
+# (B, Sq, Skv, H, D, block_k) for every form in bf16 and fp32: ragged Sq
+# and Skv at each instance (D <= 128, 160, 256; D = 256 takes 32-key
+# tiles), a period of 128 keys over a ragged tail, 640 keys (20 tiles of
+# 32) at D = 256, and Skv a multiple of the period (no padded keys, whose
+# -1e30 scores otherwise drive noexp's l to about -1e31 and its outputs
+# to near zero): 4 periods of 128, and 4 of 256 at D = 160 and D = 256
+FORM_CASES = [(2, 300, 300, 2, 40, 128),
+              (1, 200, 577, 2, 80, 1024),
+              (1, 129, 700, 2, 160, 256),
+              (1, 100, 1100, 1, 256, 1024),
+              (1, 64, 300, 1, 256, 128),
+              (1, 100, 512, 2, 40, 128),
+              (1, 100, 1024, 2, 160, 256),
+              (1, 64, 1024, 1, 256, 256)]
 # (entry, P, F, H, D, dtype): the 512x512 level-0 motion site, F = 8 / 32
 # and D = 80 / 160, fp32 operands, K9 at F = 24
 TEMPORAL_CASES = [("k6", 8192, 16, 8, 40, torch.bfloat16),
@@ -105,10 +130,11 @@ def _check_k1(cuda, B, Sq, Skv, H, D):
     k = _randn((B, Skv, H, D), gen, cuda)
     v = _randn((B, Skv, H, D), gen, cuda)
     n0 = flash_attention_dt.launches
-    got = flash_attention_dt(q, k, v, scale=D ** -0.5)
+    got = flash_attention_dt(q, k, v, scale=D ** -0.5, exp_impl="staticmax")
     torch.cuda.synchronize()
     assert flash_attention_dt.launches == n0 + 1
-    want = flash_attention_dt_plain(q, k, v, scale=D ** -0.5)
+    want = flash_attention_dt_plain(q, k, v, scale=D ** -0.5,
+                                    exp_impl="staticmax")
     err = (got.float() - want.float()).abs().max().item()
     assert err <= _tol(want), err
 
@@ -135,15 +161,20 @@ def _check_fp32(cuda, kernel, B, Sq, Skv, H, D):
     kernels do for fp32 v (the fp32 policy on the card)."""
     from vdx_torch.kernels import flash_attention as KA
 
-    fn, plain = {"K1": (KA.flash_attention_dt, KA.flash_attention_dt_plain),
+    static = dict(exp_impl="staticmax")
+    fn, plain = {"K1": (partial(KA.flash_attention_dt, **static),
+                        partial(KA.flash_attention_dt_plain, **static)),
                  "K4": (KA.flash_attention, KA.flash_attention_plain)}[kernel]
+    # fp32 staticmax is the SIMT kernel's static mode, "K1 static"
+    count = ((lambda: KA.flash_attention_dt.form_launches["K1 static"])
+             if kernel == "K1" else (lambda: fn.launches))
     gen = torch.Generator(device=cuda).manual_seed(5)
     q, k, v = (torch.randn((B, S, H, D), generator=gen, device=cuda)
                for S in (Sq, Skv, Skv))
-    n0 = fn.launches
+    n0 = count()
     got = fn(q, k, v, scale=D ** -0.5)
     torch.cuda.synchronize()
-    assert fn.launches == n0 + 1 and got.dtype == torch.float32
+    assert count() == n0 + 1 and got.dtype == torch.float32
     want = plain(q, k, v, scale=D ** -0.5)
     err = (got - want).abs().max().item()
     assert err <= _tol(want), (kernel, B, Sq, Skv, H, D, err)
@@ -166,16 +197,63 @@ def _check_k4_strided_and_misaligned(cuda):
 
 
 def _check_k1_strided_operands(cuda):
-    """q/k/v as views into one fused [B, S, 3, H, D] projection."""
+    """q/k/v as views into one fused [B, S, 3, H, D] projection (K1's WMMA
+    kernel), and rows that are not 16-byte aligned (the mma.sync kernel's
+    static mode, counted as "K1 static", not as K1)."""
     from vdx_torch.kernels.flash_attention import (flash_attention_dt,
                                                    flash_attention_dt_plain)
 
     gen = torch.Generator(device=cuda).manual_seed(1)
     qkv = _randn((2, 640, 3, 4, 40), gen, cuda)
-    q, k, v = qkv.unbind(dim=2)
-    got = flash_attention_dt(q, k, v, scale=0.2)
-    want = flash_attention_dt_plain(q, k, v, scale=0.2)
-    assert (got.float() - want.float()).abs().max().item() <= _tol(want)
+    flat = _randn((2 * 640 * 4 * 40 + 4,), gen, cuda)
+    odd = flat[4:].view(2, 640, 4, 40)  # base 8 bytes past alignment
+    for (q, k, v), counter in ((qkv.unbind(dim=2), "K1"),
+                               ((odd, odd, odd), "K1 static")):
+        before = _form_counts()
+        got = flash_attention_dt(q, k, v, scale=0.2, exp_impl="staticmax")
+        after = _form_counts()
+        assert after == dict(before, **{counter: before[counter] + 1}), after
+        want = flash_attention_dt_plain(q, k, v, scale=0.2,
+                                        exp_impl="staticmax")
+        assert (got.float() - want.float()).abs().max().item() <= _tol(want)
+
+
+def _form_counts():
+    from vdx_torch.kernels.flash_attention import flash_attention_dt
+
+    return {"K1": flash_attention_dt.launches,
+            **flash_attention_dt.form_launches}
+
+
+def _check_form(cuda, form, dtype, B, Sq, Skv, H, D, block_k):
+    """flash_attention_dt in one form against its plain version with the
+    same block_k (kernels.flash_attention.plain_err_tol's bar), on
+    contiguous operands and on views into one fused [B, S, 3, H, D]
+    projection; the form's own counter takes each launch, no other: K1's
+    WMMA kernel for bf16 staticmax at D < 128 (every view here has
+    16-byte aligned rows), else FORM_KERNEL's name (K1 static, K5, K1')."""
+    from vdx_torch.kernels.flash_attention import (FORM_KERNEL,
+                                                   flash_attention_dt,
+                                                   plain_err_tol)
+
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    q = _randn((B, Sq, H, D), gen, cuda, dtype)
+    kv = _randn((B, Skv, 2, H, D), gen, cuda, dtype)
+    qkv = _randn((B, Skv, 3, H, D), gen, cuda, dtype)
+    for q, k, v in ((q, kv[:, :, 0].contiguous(), kv[:, :, 1].contiguous()),
+                    qkv.unbind(dim=2)):
+        before = _form_counts()
+        got = flash_attention_dt(q, k, v, scale=D ** -0.5, block_k=block_k,
+                                 exp_impl=form)
+        torch.cuda.synchronize()
+        after = _form_counts()
+        wmma = form == "staticmax" and dtype == torch.bfloat16 and D < 128
+        name = "K1" if wmma else FORM_KERNEL[form]
+        assert after == dict(before, **{name: before[name] + 1}), (form, after)
+        err, _, tol, _ = plain_err_tol(got, q, k, v, scale=D ** -0.5,
+                                       exp_impl=form, block_k=block_k)
+        assert got.dtype == dtype and err <= tol, \
+            (form, dtype, B, Sq, Skv, H, D, block_k, err, tol)
 
 
 def _temporal(kernel):
@@ -309,7 +387,8 @@ def _check_tf32_off_inside_fp32_forwards_only(cuda):
 
 
 def _check_wrappers_raise_on_what_kernels_do_not_take(cuda):
-    from vdx_torch.kernels.flash_attention import flash_attention_dt
+    from vdx_torch.kernels.flash_attention import (flash_attention_dt,
+                                                   flash_attention_dt_plain)
     from vdx_torch.ops.attention import dot_product_attention
     from vdx_torch.ops.groupnorm import group_norm
 
@@ -322,11 +401,17 @@ def _check_wrappers_raise_on_what_kernels_do_not_take(cuda):
     n0 = flash_attention.launches
     dot_product_attention(q16, q16, q16)  # flash-sized, D = 128: K4
     assert flash_attention.launches == n0 + 1
-    with pytest.raises(ValueError, match="head dims"):
-        flash_attention_dt(q16, q16, q16, scale=1.0)  # D = 128 is K4's
+    # D = 128 computes, as vdx does (vdx's default form, exp)
+    got = flash_attention_dt(q16, q16, q16, scale=1.0)
+    want = flash_attention_dt_plain(q16, q16, q16, scale=1.0, exp_impl="exp")
+    assert (got.float() - want.float()).abs().max().item() <= _tol(want)
     q264 = torch.randn(1, 64, 1, 264, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dims"):
         flash_attention(q264, q264, q264, scale=1.0)
+    with pytest.raises(ValueError, match="head dims 8..256"):
+        flash_attention_dt(q264, q264, q264, scale=1.0)
+    with pytest.raises(ValueError, match="exp_impl"):
+        flash_attention_dt(q16, q16, q16, scale=1.0, exp_impl="exp3")
     with pytest.raises(ValueError, match="cpu"):
         flash_attention(q16, q16.cpu(), q16, scale=1.0)
     with pytest.raises(TypeError):
@@ -366,10 +451,15 @@ def _check_wrappers_raise_on_what_kernels_do_not_take(cuda):
 # tests keep it behind the suite's heavy files.
 @pytest.mark.cuda
 def test_k1_matches_plain(cuda):
-    """The attention kernels: K1 and K4 (bf16 and fp32), K6-K9."""
+    """The attention kernels: K1 and K4 (bf16 and fp32), every form of
+    flash_attention_dt (K1', K5, and K1 at D >= 128), K6-K9."""
     for case in K1_CASES:
         _check_k1(cuda, *case)
     _check_k1_strided_operands(cuda)
+    for form in FORMS:
+        for dtype in (torch.bfloat16, torch.float32):
+            for case in FORM_CASES:
+                _check_form(cuda, form, dtype, *case)
     for case in K4_CASES:
         _check_k4(cuda, *case)
     _check_k4_strided_and_misaligned(cuda)
@@ -404,7 +494,8 @@ def _imports(path: pathlib.Path):
 
 def test_port_imports_no_jax_or_vdx():
     files = sorted((ROOT / "vdx_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_torch_port.py"]
+        ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_torch_port.py",
+        ROOT / "scripts" / "bench_attn_torch.py"]
     assert len(files) > 10
     bad = []
     for path in files:

@@ -72,7 +72,8 @@ def _check_k1_plain_against_pallas(B, Sq, Skv, H, D):
     with pltpu.force_tpu_interpret_mode():
         want = np.asarray(jax_flash_dt(q, k, v, scale=scale, block_q=4096,
                                        block_k=1024, exp_impl="staticmax"))
-    got = KA.flash_attention_dt(_t(q), _t(k), _t(v), scale=scale)
+    got = KA.flash_attention_dt(_t(q), _t(k), _t(v), scale=scale,
+                                exp_impl="staticmax")
     np.testing.assert_allclose(got.numpy(), want, atol=2e-5)
     # staticmax is exact softmax attention up to rounding in fp32
     exact = TA.dot_product_attention(_t(q), _t(k), _t(v), impl="xla")
@@ -103,10 +104,13 @@ def _check_flash_dispatch_against_vdx(D):
             jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), impl="flash"))
     got = TA.dot_product_attention(_t(q), _t(k), _t(v), impl="flash")
     np.testing.assert_allclose(got.numpy(), want, atol=2e-5)
-    plain = KA.flash_attention_dt_plain if D % 8 == 0 and D < 128 \
-        else KA.flash_attention_plain
-    np.testing.assert_array_equal(
-        got.numpy(), plain(_t(q), _t(k), _t(v), scale=D ** -0.5).numpy())
+    if D % 8 == 0 and D < 128:
+        plain = KA.flash_attention_dt_plain(_t(q), _t(k), _t(v),
+                                            scale=D ** -0.5,
+                                            exp_impl="staticmax")
+    else:
+        plain = KA.flash_attention_plain(_t(q), _t(k), _t(v), scale=D ** -0.5)
+    np.testing.assert_array_equal(got.numpy(), plain.numpy())
 
 
 def _check_temporal_plain_against_pallas(kernel, P, F, H, D, dtype):

@@ -44,12 +44,15 @@ _SIGNATURES = {
     # strides, o strides, q_mult, stream
     "vdx_flash_attention_dt_staticmax_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I]
     + [_L] * 12 + [_F, _P],
-    # the same, then t_mult, vec (16-byte row loads), stream
-    "vdx_flash_attention_runmax_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I]
-    + [_L] * 12 + [_F, _I, _P],
-    # the same, then mult, running_max (K4's form, else K1's), stream
+    # the same, then mult (scale * log2e), form (vdx's exp_impl: 0 exp,
+    # 1 exp2, 2 fastexp2, 3 staticmax, 4 staticaug, 5 noexp, 6 mxu_only),
+    # period (fastexp2's and noexp's statistics period), vec (16-byte row
+    # loads), stream
+    "vdx_flash_attention_mma_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I]
+    + [_L] * 12 + [_F, _I, _I, _I, _P],
+    # the same without vec (fp32 operands)
     "vdx_flash_attention_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I]
-    + [_L] * 12 + [_F, _I, _P],
+    + [_L] * 12 + [_F, _I, _I, _P],
     # q, k, v, o, P, F, H, D, q strides (p, f, h), k strides, v strides,
     # o strides, mult, bf16, vec (16-byte row loads), stream
     **{name: [_P, _P, _P, _P, _I, _I, _I, _I] + [_L] * 12 + [_F, _I, _I, _P]

@@ -1,22 +1,33 @@
-"""K1 (staticmax) and K4 (running-max) flash attention (CUDA,
-``csrc/flash_attention*.cu``).
+"""Flash attention over [B, S, H, D] tensors: K1, K1', K4 and K5 (CUDA,
+``csrc/flash_attention*.cu``), and the temporal kernels K6-K8.
 
-K1 — port of vdx/kernels/flash_attention.py ``flash_attention_dt(...,
-exp_impl="staticmax")``: non-causal softmax(q k^T * scale) v over
-[B, S, H, D] tensors in the max-free base-2 form
+``flash_attention_dt`` — port of vdx/kernels/flash_attention.py
+``flash_attention_dt``: non-causal softmax(q k^T * scale) v in one of vdx's
+seven ``exp_impl`` forms. Every form but ``exp`` first folds
+scale * log2(e) into q, the product in fp32 rounded once to q's dtype, so
+the scores s live in the log2 domain. r() is the rounding to v's dtype.
 
-    p = 2^(s * scale * log2(e) - 80),   out = (sum r(p) v) / max(l, 2^-126)
+* ``staticmax`` (K1): p = 2^(s - 80), no row max; out = (sum r(p) v) /
+  max(l, 2^-126) with l summed from the unrounded p. The power-of-two
+  offset is exact and cancels in acc / l. Domain bound (as vdx,
+  ``STATIC_OFF``): a row whose every scaled logit is below -46 underflows
+  to zeros; one above ~193 overflows.
+* ``staticaug`` (K5): staticmax with l summed from the rounded r(p) (vdx
+  gets l from a ones row of v in the PV product).
+* ``exp``, ``exp2``, ``fastexp2`` (K1'): the running-max recurrence of
+  vdx's kernel, m' = max(m, blockmax s), alpha = e(m - m'), p = e(s - m'),
+  l' = alpha l + sum p over the unrounded p, acc' = alpha acc + r(p) v,
+  out = acc / l; e is exp on s * scale (``exp``), exp2 (``exp2``) or vdx's
+  cubic ``_fast_exp2`` (``fastexp2``), the max updated once per effective
+  ``block_k`` keys. For fastexp2 that period shows in the output (the
+  cubic's 7.5e-5 error composes over the rescales).
+* ``noexp`` (K1', a probe): the same recurrence with e(x) = x + 1. Its
+  output depends on the period, padded keys (up to a multiple of it)
+  scoring -1e30 and entering l.
+* ``mxu_only`` (K1', a probe): out = r(s) v, no softmax at all.
 
-with ``l`` summed from the unrounded p and r() the rounding to v's dtype.
-The power-of-two offset is exact and cancels in acc / l. Domain bound (as
-vdx, ``STATIC_OFF``): a row whose every scaled logit is below -46
-underflows to zeros; one above ~193 overflows.
-
-K4 — port of vdx/kernels/flash_attention.py ``flash_attention``: the same
-function by the running-max online softmax (m' = max(m, rowmax s),
-alpha = e^(m - m'), p = e^(s - m'), l' = alpha l + sum p over the
-unrounded p, acc' = alpha acc + r(p) v), for any head dim up to 256. No
-domain bound.
+``flash_attention`` (K4) — port of vdx's ``flash_attention``: the running
+max in base e for any head dim up to 256 (the same kernel as ``exp``).
 
 K6, K7, K8 — ports of vdx/kernels/flash_attention.py
 ``flash_attention_blockdiag``, ``flash_attention_blockdiag_tc`` and
@@ -32,9 +43,10 @@ scores by it, and compute the identical function. All three run as modes
 of one Hopper kernel (``csrc/temporal_attention.cu``; K9, in
 kernels/temporal_attention_cp.py, is its third mode).
 
-Each wrapper launches its CUDA kernel for a CUDA tensor (K1/K4: bf16 on
-the tensor cores, fp32 on a SIMT kernel with fp32 p; K6-K9: fp32 FMAs for
-either dtype) and raises on anything the kernel does not take; for a CPU
+Each wrapper launches its CUDA kernel for a CUDA tensor (K1 at D < 128 in
+bf16 with 16-byte aligned rows: a WMMA kernel; every other form and head
+dim in bf16: modes of one mma.sync kernel; fp32: a SIMT kernel with fp32
+p; K6-K9: fp32 FMAs for either dtype) and raises on anything the kernel does not take; for a CPU
 tensor it computes its plain PyTorch version, which the tests and
 ``chip_smoke.py`` hold the kernel against.
 """
@@ -46,25 +58,156 @@ import torch
 from vdx_torch.kernels import _lib
 
 LOG2E = 1.4426950408889634
+NEG_INF = -1e30
 STATIC_OFF = 80.0
 L_FLOOR = 2.0 ** -126
+# vdx's degree-3 polynomial for 2^f on [0, 1] (the "fastexp2" form)
+EXP2_C0 = 0.9999250788416159
+EXP2_C1 = 0.6958342408899721
+EXP2_C2 = 0.22606693137993905
+EXP2_C3 = 0.0780238760040786
+# vdx's exp_impl forms, in the order of the CUDA entry points' form codes
+EXP_IMPLS = ("exp", "exp2", "fastexp2", "staticmax", "staticaug", "noexp",
+             "mxu_only")
+# each form's counter in flash_attention_dt.form_launches: K5 is
+# staticaug, K1' the running-max forms and the probes; "K1 static" is
+# staticmax in the forms kernels (D >= 128, fp32, or bf16 rows that are not
+# 16-byte aligned), while K1's WMMA kernel counts in .launches
+FORM_KERNEL = {"exp": "K1' exp", "exp2": "K1' exp2",
+               "fastexp2": "K1' fastexp2", "staticmax": "K1 static",
+               "staticaug": "K5", "noexp": "K1' noexp",
+               "mxu_only": "K1' mxu_only"}
+# fp32 outputs against the plain version: sums in another order
+FP32_TOL = 1e-4
+# the mma.sync and SIMT kernels take head dims up to 256
+MAX_D = 256
 # csrc/temporal_attention.cu takes up to 32 frames and head dims up to 160
 TEMPORAL_MAX_F = 32
 TEMPORAL_MAX_D = 160
 
 
+def min_pad_block(S: int, cap: int) -> int:
+    """vdx's ``_min_pad_block``: the largest multiple of 128 up to ``cap``
+    that keeps the fewest blocks over S with the least padding."""
+    Sp = max(128, ((S + 127) // 128) * 128)
+    cap = max(128, (min(cap, Sp) // 128) * 128)
+    n = (Sp + cap - 1) // cap
+    return min(cap, ((Sp // n + 127) // 128) * 128)
+
+
+def fast_exp2(y: torch.Tensor) -> torch.Tensor:
+    """vdx's ``_fast_exp2`` on fp32: 2^y for y <= 0, clamped at -125, from
+    the exponent bits (n + 127) << 23 times the cubic in f = y - floor(y)
+    (Horner form, each operation rounded to fp32)."""
+    y = torch.clamp_min(y, -125.0)
+    n = torch.floor(y)
+    f = y - n
+    p = ((EXP2_C3 * f + EXP2_C2) * f + EXP2_C1) * f + EXP2_C0
+    return ((n.to(torch.int32) + 127) << 23).view(torch.float32) * p
+
+
+def _running_max_plain(s: torch.Tensor, v: torch.Tensor, exp_impl: str,
+                       bk: int) -> torch.Tensor:
+    """vdx's recurrence on scores s [b, h, q, k] (base e for "exp", else
+    log2 domain), in s's dtype, the max updated once per ``bk`` keys; keys
+    padded up to a multiple of ``bk`` score -1e30 and v zero. -> acc / l
+    [b, q, h, D]."""
+    e = {"exp": torch.exp, "exp2": torch.exp2, "fastexp2": fast_exp2,
+         "noexp": lambda x: x + 1.0}[exp_impl]
+    Skv = s.shape[-1]
+    pad = -Skv % bk
+    if pad:
+        s = torch.nn.functional.pad(s, (0, pad), value=NEG_INF)
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    m = torch.full(s.shape[:-1], NEG_INF, dtype=s.dtype, device=s.device)
+    l = torch.zeros_like(m)
+    acc = None
+    for j in range(0, Skv + pad, bk):
+        sb = s[..., j:j + bk]
+        m_new = torch.maximum(m, sb.amax(dim=-1))
+        alpha = e(m - m_new)
+        p = e(sb - m_new[..., None])
+        l = alpha * l + p.sum(dim=-1)
+        pv = torch.einsum("bhqk,bkhd->bhqd", p.to(v.dtype).to(s.dtype),
+                          v[:, j:j + bk].to(s.dtype))
+        acc = pv if acc is None else alpha[..., None] * acc + pv
+        m = m_new
+    return (acc / l[..., None]).transpose(1, 2)
+
+
 def flash_attention_dt_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                             *, scale: float) -> torch.Tensor:
-    """Plain PyTorch staticmax attention: the kernel's arithmetic, with the
-    S x S score tensor materialised. [B, Sq, H, D] -> [B, Sq, H, D]."""
-    # q pre-scaled in fp32 and rounded once to q's dtype (as vdx does
-    # host-side before the Pallas kernel)
-    qs = (q.float() * (scale * LOG2E)).to(q.dtype)
-    s = torch.einsum("bqhd,bkhd->bhqk", qs.float(), k.float())
-    p = torch.exp2(s - STATIC_OFF)
-    l = torch.clamp_min(p.sum(dim=-1), L_FLOOR)  # [b, h, q]
-    acc = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
-    return (acc / l.transpose(1, 2)[..., None]).to(q.dtype)
+                             *, scale: float, exp_impl: str,
+                             block_k: int = 1024) -> torch.Tensor:
+    """Plain PyTorch ``flash_attention_dt`` in form ``exp_impl``: vdx's
+    arithmetic and rounding points with the S x S scores materialised,
+    accumulated in fp32 (float64 for float64 operands: the recurrence
+    without rounding, after the fold in fp32). ``block_k`` (through
+    :func:`min_pad_block`) is the running-max forms' statistics period.
+    [B, Sq, H, D] -> [B, Sq, H, D]."""
+    if exp_impl not in EXP_IMPLS:
+        raise ValueError(f"unknown exp_impl {exp_impl!r}; vdx takes {EXP_IMPLS}")
+    acc_t = torch.float64 if q.dtype == torch.float64 else torch.float32
+    if exp_impl == "exp":
+        qs = q
+    else:  # q pre-scaled in fp32 and rounded once to q's dtype
+        qs = (q.float() * (scale * LOG2E)).to(q.dtype)
+    s = torch.einsum("bqhd,bkhd->bhqk", qs.to(acc_t), k.to(acc_t))
+    if exp_impl in ("staticmax", "staticaug"):
+        p = torch.exp2(s - STATIC_OFF)
+        pr = p.to(v.dtype).to(acc_t)
+        l = torch.clamp_min((p if exp_impl == "staticmax" else pr).sum(dim=-1),
+                            L_FLOOR)  # [b, h, q]
+        acc = torch.einsum("bhqk,bkhd->bqhd", pr, v.to(acc_t))
+        return (acc / l.transpose(1, 2)[..., None]).to(q.dtype)
+    if exp_impl == "mxu_only":
+        return torch.einsum("bhqk,bkhd->bqhd", s.to(v.dtype).to(acc_t),
+                            v.to(acc_t)).to(q.dtype)
+    if exp_impl == "exp":
+        s = s * scale
+    bk = min_pad_block(k.shape[1], block_k)
+    return _running_max_plain(s, v, exp_impl, bk).to(q.dtype)
+
+
+def plain_err_tol(out: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor, *, scale: float, exp_impl: str,
+                  block_k: int = 1024):
+    """``out``, flash_attention_dt's output on q, k, v in form
+    ``exp_impl``, against :func:`flash_attention_dt_plain` with the same
+    ``block_k``. -> (max_abs_err, mean_abs_err, tol, max|plain|), the
+    last from the float64 recurrence for noexp in fp32.
+
+    bf16: one bf16 ulp at max|plain|, 2^-7 * max|plain| (both sides round
+    once to bf16 from fp32 sums in another order), floored at 1 for every
+    form but noexp. noexp's bar has no floor: when Skv is not a multiple
+    of the period, the padded keys' -1e30 scores enter l and shrink every
+    output to about 1e-30, and the bar has to shrink with them.
+
+    fp32: 1e-4, times max(1, max|plain|) for mxu_only, which does not
+    normalise. noexp in fp32: x + 1 in place of the exponential leaves l a
+    sum of signed terms, rescaled by factors m - m' + 1 that may be
+    negative, so l can nearly cancel and fp32 does not resolve the output
+    to 1e-4 (the fp32 plain version itself lands up to ~6e-4 from float64
+    at O(1) outputs). The kernel is held to the same recurrence in float64
+    within 1e-4 * max|exact| plus four times the fp32 plain version's own
+    distance from it.
+    """
+    kw = dict(scale=scale, exp_impl=exp_impl, block_k=block_k)
+    ref = flash_attention_dt_plain(q, k, v, **kw)
+    mag = ref.float().abs().max().item()
+    if exp_impl == "noexp" and q.dtype == torch.float32:
+        exact = flash_attention_dt_plain(q.double(), k.double(), v.double(),
+                                         **kw)
+        own = (ref.double() - exact).abs().max().item()
+        err = (out.double() - exact).abs()
+        mag = exact.abs().max().item()
+        tol = FP32_TOL * mag + 4 * own
+    else:
+        err = (out.float() - ref.float()).abs()
+        floor = 0.0 if exp_impl == "noexp" else 1.0
+        tol = (2.0 ** -7 * max(floor, mag) if q.dtype == torch.bfloat16
+               else FP32_TOL * (max(1.0, mag) if exp_impl == "mxu_only"
+                                else 1.0))
+    return err.max().item(), err.mean().item(), tol, mag
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -80,7 +223,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _check_operands(what: str, q, k, v) -> None:
-    """Device, dtype, shape and layout checks shared by K1 and K4."""
+    """Device, dtype, shape and layout checks shared by K1, K1', K4, K5."""
     if q.device.type != "cuda":
         raise ValueError(f"{what} runs on cuda or cpu tensors, got {q.device}")
     B, Sq, H, D = q.shape
@@ -113,49 +256,83 @@ def _strides(*ts: torch.Tensor):
     return [st for t in ts for st in t.stride()[:3]]
 
 
-def _launch_f32(q, k, v, *, scale: float, running_max: bool) -> torch.Tensor:
+def _launch_forms(q, k, v, *, scale: float, exp_impl: str,
+                  period: int) -> torch.Tensor:
+    """One launch of the form ``exp_impl`` of the mma.sync kernel (bf16,
+    ``csrc/flash_attention_runmax.cu``) or the SIMT kernel (fp32,
+    ``csrc/flash_attention_f32.cu``); ``period`` is fastexp2's and
+    noexp's statistics period in keys (a multiple of 128)."""
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
     B, Sq, H, D = q.shape
-    err = _lib.lib().vdx_flash_attention_f32(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        B, Sq, k.shape[1], H, D, *_strides(q, k, v, o),
-        float(scale * LOG2E), int(running_max), _lib.stream_ptr(q.device))
-    _lib.check(err, "flash attention (fp32)")
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            B, Sq, k.shape[1], H, D, *_strides(q, k, v, o),
+            float(scale * LOG2E), EXP_IMPLS.index(exp_impl), int(period))
+    if q.dtype == torch.float32:
+        err = _lib.lib().vdx_flash_attention_f32(*args, _lib.stream_ptr(q.device))
+    else:
+        vec = D % 8 == 0 and _rows_16b_aligned(q, k, v)
+        err = _lib.lib().vdx_flash_attention_mma_bf16(
+            *args, int(vec), _lib.stream_ptr(q.device))
+    _lib.check(err, f"flash attention {exp_impl} ({str(q.dtype)[6:]})")
     return o
 
 
 def flash_attention_dt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                       *, scale: float) -> torch.Tensor:
-    """K1: staticmax flash attention, [B, Sq, H, D] x [B, Skv, H, D]^2 ->
-    q's shape.
+                       *, scale: float, block_q: int = 1024,
+                       block_k: int = 1024,
+                       exp_impl: str = "exp") -> torch.Tensor:
+    """vdx's ``flash_attention_dt``: [B, Sq, H, D] x [B, Skv, H, D]^2 ->
+    q's shape, in form ``exp_impl`` (one of :data:`EXP_IMPLS`; see the
+    module docstring), bf16 or fp32, D % 8 == 0.
 
-    CUDA: D % 8 == 0 and D < 128 (what ops.attention sends here); bf16
-    with 16-byte aligned rows on the tensor cores, or fp32; one launch on
-    the current stream, no synchronise. CPU: the plain version.
+    ``block_q`` and ``block_k`` are vdx's TPU tiles, taken through
+    :func:`min_pad_block` as vdx does. They change nothing but the
+    statistics period (the effective block_k) of noexp and, within the
+    cubic's error, of fastexp2; for every other form they change only the
+    fp32 summation order on the TPU, and the Hopper kernels need none.
+
+    CUDA: one launch on the current stream, no synchronise, D <= 256 (the
+    Hopper kernels' limit). staticmax at D < 128 in bf16 with 16-byte
+    aligned rows runs K1's WMMA kernel; every other form and head dim a
+    mode of the mma.sync kernel (bf16) or of the SIMT kernel (fp32).
+    K1's WMMA kernel counts in ``launches``; every other launch in
+    ``form_launches`` under :data:`FORM_KERNEL`'s name of its form
+    (staticmax in the forms kernels as "K1 static"). CPU: the plain
+    version.
     """
+    if exp_impl not in EXP_IMPLS:
+        raise ValueError(f"unknown exp_impl {exp_impl!r}; vdx takes {EXP_IMPLS}")
+    D = q.shape[-1]
+    if D % 8:
+        raise ValueError(f"flash_attention_dt takes D % 8 == 0, got D={D}")
+    period = min_pad_block(k.shape[1], block_k)
     if q.device.type == "cpu":
-        return flash_attention_dt_plain(q, k, v, scale=scale)
-    _check_operands("K1", q, k, v)
-    B, Sq, H, D = q.shape
-    if D % 8 or not 8 <= D < 128:
-        raise ValueError(f"K1 takes head dims 8..120 in steps of 8, got {D}")
-    if q.dtype == torch.float32:
-        o = _launch_f32(q, k, v, scale=scale, running_max=False)
-    else:
-        if not _rows_16b_aligned(q, k, v):
-            raise ValueError("K1 needs bf16 q/k/v rows 16-byte aligned "
-                             f"(strides {q.stride()}, {k.stride()}, {v.stride()})")
+        return flash_attention_dt_plain(q, k, v, scale=scale,
+                                        exp_impl=exp_impl, block_k=block_k)
+    what = f"flash_attention_dt {exp_impl}"
+    _check_operands(what, q, k, v)
+    if not 8 <= D <= MAX_D:
+        raise ValueError(f"{what}: the Hopper kernels take head dims 8..{MAX_D} "
+                         f"in steps of 8 (vdx has no upper bound), got {D}")
+    if (exp_impl == "staticmax" and q.dtype == torch.bfloat16 and D < 128
+            and _rows_16b_aligned(q, k, v)):
         o = torch.empty_like(q, memory_format=torch.contiguous_format)
+        B, Sq, H, _ = q.shape
         err = _lib.lib().vdx_flash_attention_dt_staticmax_bf16(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             B, Sq, k.shape[1], H, D, *_strides(q, k, v, o),
             float(scale * LOG2E), _lib.stream_ptr(q.device))
         _lib.check(err, "K1 flash_attention_dt")
-    flash_attention_dt.launches += 1
+        flash_attention_dt.launches += 1
+    else:
+        o = _launch_forms(q, k, v, scale=scale, exp_impl=exp_impl,
+                          period=period)
+        flash_attention_dt.form_launches[FORM_KERNEL[exp_impl]] += 1
     return o
 
 
 flash_attention_dt.launches = 0
+flash_attention_dt.form_launches = {FORM_KERNEL[f]: 0 for f in EXP_IMPLS}
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -163,26 +340,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """K4: running-max flash attention, [B, Sq, H, D] x [B, Skv, H, D]^2
     -> q's shape, any 1 <= D <= 256.
 
-    CUDA: bf16 on the tensor cores (16-byte row loads when D % 8 == 0 and
-    the rows are aligned, element loads otherwise), or fp32; one launch on
-    the current stream, no synchronise. CPU: the plain version.
+    CUDA: the ``exp`` form of the mma.sync kernel (bf16; 16-byte row
+    loads when D % 8 == 0 and the rows are aligned, element loads
+    otherwise) or of the SIMT kernel (fp32); one launch on the current
+    stream, no synchronise. CPU: the plain version.
     """
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale=scale)
     _check_operands("K4", q, k, v)
-    B, Sq, H, D = q.shape
-    if not 1 <= D <= 256:
-        raise ValueError(f"K4 takes head dims 1..256, got {D}")
-    if q.dtype == torch.float32:
-        o = _launch_f32(q, k, v, scale=scale, running_max=True)
-    else:
-        o = torch.empty_like(q, memory_format=torch.contiguous_format)
-        vec = D % 8 == 0 and _rows_16b_aligned(q, k, v)
-        err = _lib.lib().vdx_flash_attention_runmax_bf16(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            B, Sq, k.shape[1], H, D, *_strides(q, k, v, o),
-            float(scale * LOG2E), int(vec), _lib.stream_ptr(q.device))
-        _lib.check(err, "K4 flash_attention")
+    D = q.shape[-1]
+    if not 1 <= D <= MAX_D:
+        raise ValueError(f"K4 takes head dims 1..{MAX_D}, got {D}")
+    o = _launch_forms(q, k, v, scale=scale, exp_impl="exp", period=128)
     flash_attention.launches += 1
     return o
 

@@ -8,9 +8,10 @@ Implementations:
   * ``xla_bf16p`` — fp32 softmax statistics, probs rounded to bf16 between
                     the two products, normalised by the sum of the rounded
                     probs.
-  * ``flash``     — K1, the staticmax flash kernel, for D % 8 == 0 and
-                    D < 128; K4, the running-max flash kernel, for every
-                    other head dim up to 256 (kernels/flash_attention.py).
+  * ``flash``     — K1, ``flash_attention_dt`` in its staticmax form with
+                    vdx's blocks (4096, 1024), for D % 8 == 0 and D < 128;
+                    K4, the running-max flash kernel, for every other head
+                    dim up to 256 (kernels/flash_attention.py).
   * ``blockdiag`` — K6, per-position attention over a short sequence
                     (the motion modules' F frames) with vdx's default
                     block of 512 (kernels/flash_attention.py).
@@ -35,7 +36,8 @@ from typing import Optional
 
 import torch
 
-from vdx_torch.kernels.flash_attention import (flash_attention,
+from vdx_torch.kernels.flash_attention import (LOG2E, L_FLOOR, STATIC_OFF,
+                                               flash_attention,
                                                flash_attention_blockdiag,
                                                flash_attention_dt)
 
@@ -60,6 +62,20 @@ def _xla_attention_bf16probs(q, k, v, scale: float):
     pf = p.float()
     l = pf.sum(dim=-1, keepdim=True)  # [b, h, q, 1]
     out = torch.matmul(pf, vt.float()) / l
+    return out.to(q.dtype).transpose(1, 2)
+
+
+def _xla_attention_bf16probs_static(q, k, v, scale: float):
+    """vdx's eager bf16-probs attention with the max-free static softmax
+    (K5's function): p = 2^(s * scale * log2(e) - 80) rounded to bf16, l
+    summed from the rounded p and floored at 2^-126. Not dispatched; the
+    ``bf16ps`` spec of the attention micro-benchmark."""
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    scores = torch.matmul(qt.float(), kt.float().transpose(-1, -2)) \
+        * (scale * LOG2E)
+    p = torch.exp2(scores - STATIC_OFF).to(torch.bfloat16).float()
+    l = torch.clamp_min(p.sum(dim=-1, keepdim=True), L_FLOOR)
+    out = torch.matmul(p, vt.float()) / l
     return out.to(q.dtype).transpose(1, 2)
 
 
@@ -122,7 +138,8 @@ def dot_product_attention(
     if impl == "flash":
         D = q.shape[-1]
         if D % 8 == 0 and D < 128:
-            return flash_attention_dt(q, k, v, scale=scale)
+            return flash_attention_dt(q, k, v, scale=scale, block_q=4096,
+                                      block_k=1024, exp_impl="staticmax")
         return flash_attention(q, k, v, scale=scale)
     if impl == "xla_bf16p":
         if mask is not None:
