@@ -4,11 +4,13 @@
     python3 chip_smoke.py        # from the root of a checkout, one GPU
 
 Phases, one flushed line each with its seconds:
-  1. environment: torch, CUDA, nvidia-smi name and power limit
+  1. environment: torch, CUDA, nvidia-smi name and power limit, the SM
+     count and clocks.max.sm (the exponential unit's rate in the bounds)
   2. build: one nvcc -c per vdx_torch/csrc/*.cu, started together, then a
      link (cached by source hash)
   3. kernels against their plain PyTorch versions at the main path's
-     shapes: K1 (staticmax flash attention), K2 and K3 (fused GroupNorm);
+     shapes: K1 (staticmax flash attention) and K4 (running max) on the
+     wgmma + TMA kernel, K2 and K3 (fused GroupNorm);
      kernel, plain and library times (CUDA events) beside each bound; K3
      at the 2560-channel GN shapes that the GN dispatch used to refuse
      ([32,1024,2560] bf16, [32,576,2560] fp32), driven once through
@@ -42,16 +44,20 @@ Phases, one flushed line each with its seconds:
      eager xla_bf16p path that impl="auto" runs at those sites today
  13. the attention forms: flash_attention_dt in vdx's exp_impl forms
      exp, exp2, fastexp2, noexp, mxu_only (K1') and staticaug (K5) at
-     [32,4096,8,40] and [32,576,8,160], and staticmax at [32,576,8,160]
-     (K1 at D >= 128, the forms kernels' static mode, counted apart from
-     K1's WMMA kernel as "K1 static"), each driven through the chained loop of the
+     [32,4096,8,40] and [32,576,8,160], and staticmax (K1, the wgmma +
+     TMA kernel) at both, each driven through the chained loop of the
      attention micro-benchmark (scripts/bench_attn_torch.py, K = 16) with
      the counters reset, then against its plain version, timed beside its
      bound and a library call (SDPA; two matmuls for mxu_only; none for
      noexp)
-Phase 3 also checks K4 at edge shapes (D = 20, D = 256, a ragged
-multi-tile Skv), K1/K4 with fp32 operands, and every exp_impl form in
-bf16 and fp32 at ragged key counts. Then the kernels JSON line
+Phase 3 also checks the wgmma + TMA kernel in both forms at its edges
+(Sq and Skv off the tiles, Skv under one tile, q/k/v as views into one
+fused projection, staticmax at D = 160, rows whose every scaled logit is
+below -46), K4 at the template's edge shapes (D = 20, D = 256), K1/K4
+with fp32 operands, and every exp_impl form in bf16 and fp32 at ragged
+key counts. Bounds: the largest of the operations over the peak rate,
+the bytes over the memory rate and, for attention, the exp2 calls over
+16 a clock per SM at clocks.max.sm (a report, not a check). Then the kernels JSON line
 (each row's launches from the timed call of its own path), the
 nvidia-smi line and, last, the contract line {"ok": true, "device": ...}.
 
@@ -83,6 +89,10 @@ ROOT = pathlib.Path(__file__).resolve().parent
 H100_BF16_FLOPS = 989e12
 H100_FP32_FLOPS = 67e12
 H100_BYTES_S = 3.35e12
+# exp2 calls a second: 16 a clock per SM (CUDA C++ Programming Guide,
+# arithmetic instruction throughput, compute capability 9.0) times the SM
+# count and clocks.max.sm, both read on the card in phase 1
+EXP2_PER_S = {"rate": None}
 WORKLOAD = dict(
     negative_prompt="bad quality, blurry, distorted",
     num_frames=16, height=512, width=512, guidance_scale=7.5,
@@ -127,12 +137,16 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return times[len(times) // 2]
 
 
-def bound(flops: float, nbytes: float, peak: float):
-    """Least time for the work: the larger of operations over the peak
-    rate for their type and bytes (inputs read once, outputs written
-    once) over the memory rate. -> (ms, what bounds it)."""
-    t_ops, t_bytes = flops / peak, nbytes / H100_BYTES_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+def bound(flops: float, nbytes: float, peak: float, exps: float = 0.0):
+    """Least time for the work: the largest of operations over the peak
+    rate for their type, bytes (inputs read once, outputs written once)
+    over the memory rate and exp2 calls over the special-function units'
+    rate. -> (ms, which term sets it: "operations", "bytes" or "exp2"; the
+    kernels line reports exp2 as "operations")."""
+    terms = {"operations": flops / peak, "bytes": nbytes / H100_BYTES_S,
+             "exp2": exps / EXP2_PER_S["rate"] if exps else 0.0}
+    term = max(terms, key=terms.get)
+    return terms[term] * 1e3, term
 
 
 def ptxas_summary(text: str) -> str:
@@ -211,14 +225,14 @@ def check_kernels(dev):
         lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                                scale=scale))
         b_ms, b_by = bound(4.0 * B * H * S * S * D, 4 * q.numel() * 2,
-                           H100_BF16_FLOPS)
+                                   H100_BF16_FLOPS,
+                                   float(B * H * S * S))  # one exp2 a score
         label = {"K1": "flash_attention_dt staticmax",
                  "K4": "flash_attention running-max"}[kname]
         rows.append(dict(
             name=f"{kname} {label} [{B},{S},{H},{D}] ({site}, {path}x{path})",
             kernel=kname, path=path, stage="denoise", route="cuda",
-            source=("vdx_torch/csrc/flash_attention.cu" if kname == "K1"
-                    else "vdx_torch/csrc/flash_attention_runmax.cu"),
+            source="vdx_torch/csrc/flash_attention_sm90.cu",
             replaces=("vdx/kernels/flash_attention.py:204" if kname == "K1"
                       else "vdx/kernels/flash_attention.py:135"),
             max_abs_err=err.max().item(), mean_abs_err=err.mean().item(),
@@ -273,8 +287,9 @@ def check_kernels(dev):
         plain_ms = cuda_ms(lambda: KG.group_norm_moments_plain(x, scale, bias, **kw))
         lib_ms = cuda_ms(library)
         # ~8 fp32 operations per element (two moments, affine, SiLU)
-        b_ms, b_by = bound(8.0 * x.numel(), 2 * x.numel() * x.element_size(),
-                           H100_FP32_FLOPS)
+        b_ms, b_by = bound(8.0 * x.numel(),
+                                   2 * x.numel() * x.element_size(),
+                                   H100_FP32_FLOPS)
         rows.append(dict(
             name=f"{kname} {fn.__name__} [{B},{S},{C}] {str(dtype)[6:]} "
                  f"({where})",
@@ -285,7 +300,8 @@ def check_kernels(dev):
             max_abs_err=err.max().item(), mean_abs_err=err.mean().item(),
             tol=tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
             library="F.group_norm" + (" + F.silu" if silu else ""),
-            bound_ms=b_ms, bound_by=b_by, seconds=time.time() - t0, note=""))
+            bound_ms=b_ms, bound_by=b_by,
+            seconds=time.time() - t0, note=""))
         del x, out, ref, xt
         torch.cuda.empty_cache()
 
@@ -299,24 +315,117 @@ def check_kernels(dev):
             f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
             f"{r['note'] + ' ' if r['note'] else ''}{r['seconds']:.1f}s")
     bad = [r["name"] for r in rows if not r["max_abs_err"] <= r["tol"]]
+    bad += check_sm90_edges(dev)
     bad += check_attention_edges(dev)
     if bad:
         raise SystemExit(f"kernels disagree with their plain versions: {bad}")
     return rows
 
 
+def check_sm90_edges(dev):
+    """The wgmma + TMA kernel (csrc/flash_attention_sm90.cu) in both forms
+    at its edges, each launch counted on it (K1 in
+    flash_attention_dt.launches, K4 in flash_attention.launches): Sq and
+    Skv off the 128-query and 128-key tiles at each instance's head dim,
+    Skv under one tile, q/k/v as views into one fused [B, S, 3, H, D]
+    projection, staticmax at D = 160, and at D = 40 two rows whose every
+    scaled logit is below -46 (about -95: p underflows to 0 and the row is
+    zeros; about -53: p is subnormal, as in the plain version). K1 is
+    held to kernels.flash_attention.plain_err_tol, K4 to the same bar
+    against flash_attention_plain. -> the names of the cases that fail."""
+    import torch
+
+    from vdx_torch.kernels import flash_attention as KA
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    cases = [(form, B, Sq, Skv, H, D, fused)
+             for form in ("K1", "K4")
+             for B, Sq, Skv, H, D, fused in (
+                 (2, 300, 333, 3, 40, False), (2, 300, 333, 3, 80, False),
+                 (2, 300, 333, 3, 160, False), (1, 64, 70, 2, 40, False),
+                 (1, 200, 100, 2, 160, False), (2, 640, 640, 4, 40, True),
+                 (2, 577, 577, 8, 80, True), (2, 600, 600, 2, 160, True))]
+    cases.append(("K1 below -46", 2, 256, 300, 2, 40, False))
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    bad = []
+    for form, B, Sq, Skv, H, D, fused in cases:
+        if fused:
+            qkv = randn(B, Sq, 3, H, D)
+            q, k, v = qkv.unbind(dim=2)
+        else:
+            q, k, v = randn(B, Sq, H, D), randn(B, Skv, H, D), randn(B, Skv, H, D)
+        if form == "K1 below -46":
+            # k > 0, so a row of q at -8 (-4.5) scores about -95 (-53)
+            k = (k.float().abs() + 0.5).to(torch.bfloat16)
+            q[:, 0], q[:, 1] = -8.0, -4.5
+        scale = D ** -0.5
+        static = form.startswith("K1")
+        counter = KA.flash_attention_dt if static else KA.flash_attention
+        n0 = counter.launches
+        if static:
+            out = KA.flash_attention_dt(q, k, v, scale=scale, exp_impl="staticmax")
+            err, _, tol, mag = KA.plain_err_tol(out, q, k, v, scale=scale,
+                                                exp_impl="staticmax")
+        else:
+            out = KA.flash_attention(q, k, v, scale=scale)
+            ref = KA.flash_attention_plain(q, k, v, scale=scale)
+            err = (out.float() - ref.float()).abs().max().item()
+            mag = ref.float().abs().max().item()
+            tol = bf16_tol(ref)
+        torch.cuda.synchronize()
+        launched = counter.launches - n0
+        name = (f"{form} sm90 [{B},{Sq}/{Skv},{H},{D}]"
+                + (" fused-projection views" if fused else ""))
+        extra = ""
+        if form == "K1 below -46":
+            extra = (f" row -95 max|out|={out[:, 0].float().abs().max().item():.3e}"
+                     f" row -53 max|out|={out[:, 1].float().abs().max().item():.3e}")
+        log(f"[kernels] edge {name}: max_abs_err={err:.3e} tol={tol:.3e} "
+            f"max|plain|={mag:.3e} launches on the kernel {launched}{extra}")
+        if not (err <= tol and launched == 1):
+            bad.append(name)
+    return bad
+
+
 def check_attention_edges(dev):
     """K4 at shapes off the main path (D % 8 != 0, D = 256, a multi-tile
-    ragged Skv) in bf16, K1/K4 with fp32 operands, and every form of
-    flash_attention_dt in bf16 and fp32 at a ragged Skv (noexp also with
-    Skv not a multiple of block_k, and 20 32-key tiles a period at
-    D = 256), each against its plain version; -> the names of the cases
-    that disagree."""
+    ragged Skv) in bf16, K1/K4 with fp32 operands, bf16 staticmax off the
+    wgmma + TMA kernel (the template's static mode, "K1 static": D = 256
+    over a ragged Skv, and rows 8 bytes past 16-byte alignment at D = 40
+    and 160), and every form of flash_attention_dt in bf16 and fp32 at a
+    ragged Skv (noexp also with Skv not a multiple of block_k, and 20
+    32-key tiles a period at D = 256), each against its plain version,
+    each launch counted once on the counter KA.counter_for names and on no
+    other; -> the names of the cases that fail."""
     import torch
 
     from vdx_torch.kernels import flash_attention as KA
 
     gen = torch.Generator(device=dev).manual_seed(1)
+    bad = []
+
+    def operands(dtype, B, Sq, Skv, H, D, aligned=True):
+        """q, k, v; unaligned: views whose base is 8 bytes past a 16-byte
+        boundary (every row then starts off it)."""
+        def one(S):
+            shape, n = (B, S, H, D), B * S * H * D
+            if aligned:
+                return torch.randn(shape, generator=gen, device=dev).to(dtype)
+            flat = torch.randn(n + 4, generator=gen, device=dev).to(dtype)
+            return flat[8 // flat.element_size():][:n].view(shape)
+        return one(Sq), one(Skv), one(Skv)
+
+    def counted(name, want, before):
+        """The launch landed on counter ``want`` once, on no other."""
+        after = KA.launch_counts()
+        moved = {n: after[n] - c for n, c in before.items() if after[n] != c}
+        if moved != {want: 1}:
+            log(f"[kernels] edge {name}: launches {moved}, expected {want} 1")
+            bad.append(name + " (counter)")
+
     cases = (  # (kernel, dtype, B, Sq, Skv, H, D)
         ("K4", torch.bfloat16, 2, 300, 300, 2, 20),
         ("K4", torch.bfloat16, 2, 300, 700, 2, 256),
@@ -327,45 +436,58 @@ def check_attention_edges(dev):
         ("K4", torch.float32, 2, 300, 300, 2, 20),
     )
     static = dict(exp_impl="staticmax")
-    bad = []
     for kname, dtype, B, Sq, Skv, H, D in cases:
         fn, plain = ((partial(KA.flash_attention_dt, **static),
                       partial(KA.flash_attention_dt_plain, **static))
                      if kname == "K1" else
                      (KA.flash_attention, KA.flash_attention_plain))
-        q, k, v = (torch.randn((B, S, H, D), generator=gen, device=dev).to(dtype)
-                   for S in (Sq, Skv, Skv))
+        q, k, v = operands(dtype, B, Sq, Skv, H, D)
+        before = KA.launch_counts()
         out = fn(q, k, v, scale=D ** -0.5)
+        name = f"{kname} {str(dtype)[6:]} [{B},{Sq}/{Skv},{H},{D}]"
+        counted(name, KA.counter_for("staticmax" if kname == "K1" else None,
+                                     dtype, D, True), before)
         ref = plain(q, k, v, scale=D ** -0.5)
         err = (out.float() - ref.float()).abs().max().item()
         fp32 = dtype == torch.float32
         tol = FP32_TOL if fp32 else bf16_tol(ref)
-        name = f"{kname} {str(dtype)[6:]} [{B},{Sq}/{Skv},{H},{D}]"
         log(f"[kernels] edge {name}: max_abs_err={err:.3e} tol={tol:.3e} "
             + ("(fp32: sums of up to 10^3 products in another order)" if fp32
                else "(one bf16 ulp at max|plain|)"))
         if not err <= tol:
             bad.append(name)
-    form_cases = [(form, dtype, 2, Sq, Skv, 2, D, 1024)
+    # (form, dtype, B, Sq, Skv, H, D, block_k, aligned rows)
+    form_cases = [(form, dtype, 2, Sq, Skv, 2, D, 1024, True)
                   for form in KA.EXP_IMPLS
                   for dtype in (torch.bfloat16, torch.float32)
                   for Sq, Skv, D in ((300, 300, 40), (300, 700, 160))]
-    form_cases += [("noexp", torch.bfloat16, 2, 300, 300, 2, 40, 128),
-                   ("noexp", torch.bfloat16, 2, 300, 1100, 2, 256, 1024)]
+    form_cases += [("noexp", torch.bfloat16, 2, 300, 300, 2, 40, 128, True),
+                   ("noexp", torch.bfloat16, 2, 300, 1100, 2, 256, 1024, True)]
     # Skv a multiple of the period: no padded keys, several periods, at
     # each instance (D <= 128, 160, 256)
-    form_cases += [(form, dtype, 2, 300, 1024, 2, D, 256)
+    form_cases += [(form, dtype, 2, 300, 1024, 2, D, 256, True)
                    for form in ("fastexp2", "noexp")
                    for dtype in (torch.bfloat16, torch.float32)
                    for D in (40, 160, 256)]
-    for form, dtype, B, Sq, Skv, H, D, block_k in form_cases:
-        q, k, v = (torch.randn((B, S, H, D), generator=gen, device=dev).to(dtype)
-                   for S in (Sq, Skv, Skv))
+    # bf16 staticmax on the template ("K1 static"), past the wgmma + TMA
+    # kernel's D <= 160 and on rows it does not take
+    form_cases += [("staticmax", torch.bfloat16, 2, 300, 700, 2, 256, 1024, True),
+                   ("staticmax", torch.bfloat16, 2, 300, 333, 3, 40, 1024, False),
+                   ("staticmax", torch.bfloat16, 2, 300, 700, 2, 160, 1024, False)]
+    for form, dtype, B, Sq, Skv, H, D, block_k, aligned in form_cases:
+        q, k, v = operands(dtype, B, Sq, Skv, H, D, aligned)
         kw = dict(scale=D ** -0.5, exp_impl=form, block_k=block_k)
+        want = KA.counter_for(form, dtype, D, aligned)
+        name = (f"{form} ({want}) {str(dtype)[6:]} "
+                f"[{B},{Sq}/{Skv},{H},{D}] block_k {block_k}"
+                + ("" if aligned else " rows 8 bytes past 16-byte alignment"))
+        if form == "staticmax" and dtype == torch.bfloat16 and (
+                D > KA.SM90_MAX_D or not aligned) and want != "K1 static":
+            bad.append(name + " (route)")
+        before = KA.launch_counts()
         out = KA.flash_attention_dt(q, k, v, **kw)
+        counted(name, want, before)
         err, _, tol, mag = KA.plain_err_tol(out, q, k, v, **kw)
-        name = (f"{form} ({KA.FORM_KERNEL[form]}) {str(dtype)[6:]} "
-                f"[{B},{Sq}/{Skv},{H},{D}] block_k {block_k}")
         log(f"[kernels] edge {name}: max_abs_err={err:.3e} tol={tol:.3e} "
             f"max|plain|={mag:.3e} (KA.plain_err_tol)")
         if not err <= tol:
@@ -431,23 +553,27 @@ def counters():
 
 
 def form_counters() -> dict:
-    """flash_attention_dt's forms-kernel counts: K1' per form, K5, and
-    staticmax as "K1 static" (K1's WMMA kernel counts apart, as "K1")."""
-    from vdx_torch.kernels.flash_attention import flash_attention_dt
+    """The template and SIMT kernels' counts, by KA.counter_for's names:
+    K1' per form, K5, staticmax as "K1 static" and K4 as "K4 template" (K1
+    and K4 on the wgmma + TMA kernel count apart, as "K1" and "K4")."""
+    from vdx_torch.kernels import flash_attention as KA
 
-    return flash_attention_dt.form_launches
+    return {n: c for n, c in KA.launch_counts().items() if n not in ("K1", "K4")}
 
 
 def reset_counters() -> None:
+    from vdx_torch.kernels import flash_attention as KA
+
     for fn in counters().values():
         fn.launches = 0
-    forms = form_counters()
+    forms = KA.flash_attention_dt.form_launches
     for name in forms:
         forms[name] = 0
+    KA.flash_attention.template_launches = 0
 
 
 def read_counters() -> dict:
-    return {k: fn.launches for k, fn in counters().items()} | dict(form_counters())
+    return {k: fn.launches for k, fn in counters().items()} | form_counters()
 
 
 def timed_call(pipe, label: str, **kw):
@@ -490,9 +616,10 @@ def timed_call(pipe, label: str, **kw):
 
 
 def check_no_forms(by_stage: dict, what: str) -> None:
-    """The pipeline's attention is K1's WMMA kernel and K4 only: no K1',
-    K5 or forms-kernel staticmax ("K1 static") launch in a timed call, so
-    the K1 count proves which kernel ran."""
+    """The pipeline's attention is K1 and K4 on the wgmma + TMA kernel
+    only: no K1', K5, template staticmax ("K1 static") or template K4
+    ("K4 template") launch in a timed call, so the K1 and K4 counts prove
+    which kernel ran."""
     ran = {n: d[n] for d in by_stage.values() for n in form_counters() if d[n]}
     if ran:
         raise SystemExit(f"{what}: forms-kernel launches in the pipeline: "
@@ -719,8 +846,9 @@ def check_temporal(dev, sites: dict, calls: dict):
                 # two F x F x D products; K9's arithmetic is fp32 (FMA
                 # pipes), K6-K8's operands bf16
                 peak = H100_FP32_FLOPS if kname == "K9" else H100_BF16_FLOPS
-                b_ms, b_by = bound(4.0 * P * H * F_ * F_ * D,
-                                   4 * q.numel() * q.element_size(), peak)
+                b_ms, b_by = bound(
+                    4.0 * P * H * F_ * F_ * D, 4 * q.numel() * q.element_size(),
+                    peak, float(P * H * F_ * F_))  # one exponential a score
                 rows.append(dict(
                     name=f"{kname} {entry.rsplit(' ', 1)[-1]} "
                          f"[{P},{F_},{H},{D}] ({where})",
@@ -760,11 +888,19 @@ def check_temporal(dev, sites: dict, calls: dict):
 
 # phase 13: the attention micro-benchmark's shapes, [32, 4096, 8, 40] (the
 # 512 level-0 self-attention, scripts/bench_attention.py's) and the 768
-# level-2 [32, 576, 8, 160], every K1'/K5 form at both, staticmax at D >= 128
+# level-2 [32, 576, 8, 160], every form at both (staticmax: K1 on the
+# wgmma + TMA kernel; the others on the template)
 FORM_SHAPES = ((32, 4096, 8, 40), (32, 576, 8, 160))
 FORM_ROWS = [(form, shape) for shape in FORM_SHAPES
              for form in ("exp", "exp2", "fastexp2", "staticaug", "noexp",
-                          "mxu_only")] + [("staticmax", FORM_SHAPES[1])]
+                          "mxu_only", "staticmax")]
+# bf16 staticmax past the wgmma + TMA kernel's D <= 160: the template's
+# static mode ("K1 static"), at the level-2 length
+FORM_ROWS.append(("staticmax", (32, 576, 8, 256)))
+# exp2 calls per score in each form (fastexp2 and noexp: none on the
+# special-function unit; mxu_only: no softmax)
+FORM_EXPS = {"exp": 1, "exp2": 1, "fastexp2": 0, "staticmax": 1,
+             "staticaug": 1, "noexp": 0, "mxu_only": 0}
 BENCH_ITERS = 16  # vdx's K in scripts/bench_attention.py
 
 
@@ -792,7 +928,7 @@ def check_forms(dev):
     rows, runs = [], {}
     for i, (form, (B, S, H, D)) in enumerate(FORM_ROWS):
         t0 = time.time()
-        kname = KA.FORM_KERNEL[form]
+        kname = KA.counter_for(form, torch.bfloat16, D, True)
         scale = D ** -0.5
         q, k, v = bench.fresh((B, S, H, D), S, 100 + i, dev, torch.bfloat16)
         fn = bench.make_fn(f"dt:1024:1024:{form}", scale)
@@ -833,7 +969,8 @@ def check_forms(dev):
         plain_ms = cuda_ms(plain_slice, reps=3, warmup=1) * (B // 2)
         lib_ms = cuda_ms(lib_fn, reps=5) if lib_fn else None
         b_ms, b_by = bound(4.0 * B * H * S * S * D, 4 * q.numel() * 2,
-                           H100_BF16_FLOPS)
+                                   H100_BF16_FLOPS,
+                                   float(FORM_EXPS[form] * B * H * S * S))
         note = "plain_ms: one two-entry slice timed, times 16"
         if form in ("fastexp2", "noexp"):
             note += ("; the kernel also sweeps q.k once more for each "
@@ -844,13 +981,13 @@ def check_forms(dev):
                  f"[{B},{S},{H},{D}] (attention micro-benchmark, "
                  f"dt:1024:1024:{form})",
             kernel=kname, path="forms", stage=stage, route="cuda",
-            source="vdx_torch/csrc/flash_attention_runmax.cu",
+            source=f"vdx_torch/csrc/{KA.kernel_for(form, torch.bfloat16, D, True)}.cu",
             replaces=("vdx/kernels/flash_attention.py:393" if form == "staticaug"
                       else "vdx/kernels/flash_attention.py:204"),
             max_abs_err=err, mean_abs_err=mean_err, tol=tol, ms=ms,
             plain_ms=plain_ms, library_ms=lib_ms, library=library,
-            bound_ms=b_ms, bound_by=b_by, seconds=time.time() - t0,
-            note=note))
+            bound_ms=b_ms, bound_by=b_by,
+            seconds=time.time() - t0, note=note))
         r = rows[-1]
         log(f"[forms] {r['name']}: launches {launches[kname]} in the loop "
             f"(K={BENCH_ITERS}) max_abs_err={err:.3e} "
@@ -859,7 +996,7 @@ def check_forms(dev):
             f"finite={finite} kernel_ms={ms:.4f} "
             f"plain_ms={plain_ms:.4f} library_ms="
             f"{'n/a' if lib_ms is None else f'{lib_ms:.4f}'} ({library}) "
-            f"bound_ms={b_ms:.4f} ({b_by}) ({r['seconds']:.1f}s)")
+            f"bound_ms={b_ms:.4f} ({r['bound_by']}) ({r['seconds']:.1f}s)")
         if not (finite and err <= tol):
             raise SystemExit(f"forms: {r['name']} disagrees with its plain "
                              f"version or is not finite")
@@ -889,9 +1026,17 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    EXP2_PER_S["rate"] = 16.0 * sms * clock_mhz * 1e6
     log(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)} "
-        f"count {torch.cuda.device_count()} | nvidia-smi: {smi} | tf32 off "
+        f"count {torch.cuda.device_count()} | nvidia-smi: {smi} | SMs {sms} "
+        f"clocks.max.sm {clock_mhz:.0f} MHz: exp2 bound rate "
+        f"{EXP2_PER_S['rate']:.4e}/s (16 a clock per SM) | tf32 off "
         f"| hang budget {HANG_BUDGET_S}s")
 
     # 2. build
@@ -1050,7 +1195,9 @@ def main() -> int:
         {k: r[k] for k in ("name", "route", "source", "replaces")}
         | row_launches(r)
         | {k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                             "bound_by", "library_ms")}
+                             "library_ms")}
+        | {"bound_by": "bytes" if r["bound_by"] == "bytes" else "operations",
+           "bound_term": r["bound_by"]}
         | {k: r[k] for k in ("xla_bf16p_ms", "xla_bf16p_max_abs_diff",
                              "calls_per_unet_call") if k in r}
         | ({"note": r["note"]} if r["note"] else {})

@@ -25,8 +25,9 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 CATEGORIES = (  # (category, substrings of the kernel name), first match wins
-    ("K1 flash attention (ours)", ("flash_dt_staticmax",)),
-    ("K4 flash attention (ours)", ("flash_runmax", "flash_f32")),
+    ("K1 flash attention (ours)", ("flash_sm90_static",)),
+    ("K4 flash attention (ours)", ("flash_sm90_runmax",)),
+    ("K1'/K5 flash attention forms (ours)", ("flash_mma_bf16", "flash_f32")),
     ("K2/K3 GroupNorm (ours)", ("gn_group_kernel", "gn_stats_kernel",
                                 "gn_finalize_kernel", "gn_apply_kernel")),
     ("convolution", ("conv", "fprop", "dgrad", "winograd", "implicit")),

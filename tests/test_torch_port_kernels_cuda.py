@@ -1,8 +1,9 @@
-"""vdx_torch's CUDA kernels (K1, K1', K4, K5: flash attention in every
-``exp_impl`` form; K2, K3: GroupNorm; K6-K9: temporal attention) against
-their plain PyTorch versions, on the card, the fp32 policy's TF32 scope
-in a forward on the card, plus an import-hygiene check that runs
-everywhere.
+"""vdx_torch's CUDA kernels (K1 and K4 on the wgmma + TMA kernel, and on
+the template where the routing rule sends them; K1', K5: flash attention
+in every other ``exp_impl`` form; K2, K3: GroupNorm; K6-K9: temporal
+attention) against their plain PyTorch versions, on the card, the fp32
+policy's TF32 scope in a forward on the card, plus an import-hygiene
+check that runs everywhere.
 
 The kernel tests skip without a GPU. On the card they run with
 
@@ -68,17 +69,26 @@ def _randn(shape, gen, device, dtype=torch.bfloat16, mean=0.0):
     return (torch.randn(shape, generator=gen, device=device) + mean).to(dtype)
 
 
+# K1 (staticmax on the wgmma + TMA kernel) at each of its instances
+# (DP = 48, 80, 128, 160): ragged Sq and Skv tails, Skv under one key tile
 K1_CASES = [(2, 512, 512, 2, 40),
             (1, 300, 577, 3, 80),   # ragged Sq and Skv tails
             (2, 129, 1000, 2, 64),
             (1, 64, 70, 1, 8),
-            (1, 100, 200, 2, 120)]
+            (1, 100, 200, 2, 120),
+            (2, 300, 333, 3, 160),
+            (1, 200, 50, 2, 128),   # Skv under one 64-key tile
+            (1, 64, 100, 2, 40)]    # Skv under one 128-key tile
+# K4 on the wgmma + TMA kernel (D % 8 == 0, D <= 160) and, past it, on the
+# mma.sync template ("K4 template")
 K4_CASES = [(32, 576, 576, 8, 160),   # 768x768 level-2 self-attention
             (2, 1000, 1000, 2, 160),  # multi-tile Skv, ragged tail
-            (1, 300, 300, 2, 20),     # D % 8 != 0: element-wise loads
-            (1, 129, 700, 2, 256),    # the D <= 256 instance, 32-key tiles
-            (1, 200, 333, 3, 128),    # the D <= 128 instance
-            (2, 65, 64, 1, 200)]
+            (2, 300, 333, 3, 40),     # DP = 48
+            (1, 129, 70, 2, 80),      # DP = 80, Skv under one tile
+            (1, 200, 333, 3, 128),    # DP = 128
+            (1, 300, 300, 2, 20),     # template: D % 8 != 0, element loads
+            (1, 129, 700, 2, 256),    # template: D <= 256, 32-key tiles
+            (2, 65, 64, 1, 200)]      # template
 FP32_CASES = [("K1", 2, 300, 300, 2, 40),
               ("K1", 1, 100, 531, 2, 120),
               ("K4", 2, 300, 300, 2, 160),
@@ -121,7 +131,10 @@ TEMPORAL_CASES = [("k6", 8192, 16, 8, 40, torch.bfloat16),
                   ("k9", 64, 16, 2, 20, torch.bfloat16)]  # D % 8 != 0
 
 
-def _check_k1(cuda, B, Sq, Skv, H, D):
+def _check_k1(cuda, B, Sq, Skv, H, D, below=False):
+    """K1 against its plain version; ``below``: k > 0 and two rows of q at
+    -8 and -4.5, whose every scaled logit is below -46 (at D = 40 about
+    -95, where p underflows to 0, and -53, where p is subnormal)."""
     from vdx_torch.kernels.flash_attention import (flash_attention_dt,
                                                    flash_attention_dt_plain)
 
@@ -129,10 +142,13 @@ def _check_k1(cuda, B, Sq, Skv, H, D):
     q = _randn((B, Sq, H, D), gen, cuda)
     k = _randn((B, Skv, H, D), gen, cuda)
     v = _randn((B, Skv, H, D), gen, cuda)
-    n0 = flash_attention_dt.launches
+    if below:
+        k = (k.float().abs() + 0.5).to(k.dtype)
+        q[:, 0], q[:, 1] = -8.0, -4.5
+    before = _counts()
     got = flash_attention_dt(q, k, v, scale=D ** -0.5, exp_impl="staticmax")
     torch.cuda.synchronize()
-    assert flash_attention_dt.launches == n0 + 1
+    assert _counts() == dict(before, K1=before["K1"] + 1)
     want = flash_attention_dt_plain(q, k, v, scale=D ** -0.5,
                                     exp_impl="staticmax")
     err = (got.float() - want.float()).abs().max().item()
@@ -147,13 +163,28 @@ def _check_k4(cuda, B, Sq, Skv, H, D):
     q = _randn((B, Sq, H, D), gen, cuda)
     k = _randn((B, Skv, H, D), gen, cuda)
     v = _randn((B, Skv, H, D), gen, cuda)
-    n0 = flash_attention.launches
+    before = _counts()
     got = flash_attention(q, k, v, scale=D ** -0.5)
     torch.cuda.synchronize()
-    assert flash_attention.launches == n0 + 1
+    name = _counter(None, torch.bfloat16, D, True)
+    assert _counts() == dict(before, **{name: before[name] + 1})
     want = flash_attention_plain(q, k, v, scale=D ** -0.5)
     err = (got.float() - want.float()).abs().max().item()
     assert err <= _tol(want), (B, Sq, Skv, H, D, err)
+
+
+def _counts():
+    """Every flash attention launch count (kernels.flash_attention's
+    launch_counts: K1, K4, each form's and "K4 template")."""
+    from vdx_torch.kernels.flash_attention import launch_counts
+
+    return launch_counts()
+
+
+def _counter(exp_impl, dtype, D, aligned):
+    from vdx_torch.kernels.flash_attention import counter_for
+
+    return counter_for(exp_impl, dtype, D, aligned)
 
 
 def _check_fp32(cuda, kernel, B, Sq, Skv, H, D):
@@ -165,24 +196,28 @@ def _check_fp32(cuda, kernel, B, Sq, Skv, H, D):
     fn, plain = {"K1": (partial(KA.flash_attention_dt, **static),
                         partial(KA.flash_attention_dt_plain, **static)),
                  "K4": (KA.flash_attention, KA.flash_attention_plain)}[kernel]
-    # fp32 staticmax is the SIMT kernel's static mode, "K1 static"
-    count = ((lambda: KA.flash_attention_dt.form_launches["K1 static"])
-             if kernel == "K1" else (lambda: fn.launches))
+    # fp32 staticmax is the SIMT kernel's static mode, "K1 static"; fp32
+    # K4 counts as "K4 template"
+    name = {"K1": "K1 static", "K4": "K4 template"}[kernel]
+    assert _counter("staticmax" if kernel == "K1" else None, torch.float32,
+                    D, True) == name
     gen = torch.Generator(device=cuda).manual_seed(5)
     q, k, v = (torch.randn((B, S, H, D), generator=gen, device=cuda)
                for S in (Sq, Skv, Skv))
-    n0 = count()
+    before = _counts()
     got = fn(q, k, v, scale=D ** -0.5)
     torch.cuda.synchronize()
-    assert count() == n0 + 1 and got.dtype == torch.float32
+    assert _counts() == dict(before, **{name: before[name] + 1})
+    assert got.dtype == torch.float32
     want = plain(q, k, v, scale=D ** -0.5)
     err = (got - want).abs().max().item()
     assert err <= _tol(want), (kernel, B, Sq, Skv, H, D, err)
 
 
 def _check_k4_strided_and_misaligned(cuda):
-    """K4 on views into one fused projection (16-byte row loads), and on
-    rows that are not 16-byte aligned (element loads)."""
+    """K4 on views into one fused projection (the wgmma + TMA kernel, TMA
+    with the views' strides), and on rows that are not 16-byte aligned
+    (the template's element loads, counted as "K4 template")."""
     from vdx_torch.kernels.flash_attention import (flash_attention,
                                                    flash_attention_plain)
 
@@ -190,16 +225,20 @@ def _check_k4_strided_and_misaligned(cuda):
     qkv = _randn((2, 600, 3, 2, 160), gen, cuda)
     flat = _randn((2 * 600 * 2 * 160 + 4,), gen, cuda)
     odd = flat[4:].view(2, 600, 2, 160)  # base 8 bytes past alignment
-    for q, k, v in (qkv.unbind(dim=2), (odd, odd, odd)):
+    for (q, k, v), counter in ((qkv.unbind(dim=2), "K4"),
+                               ((odd, odd, odd), "K4 template")):
+        before = _counts()
         got = flash_attention(q, k, v, scale=0.1)
+        after = _counts()
+        assert after == dict(before, **{counter: before[counter] + 1}), after
         want = flash_attention_plain(q, k, v, scale=0.1)
         assert (got.float() - want.float()).abs().max().item() <= _tol(want)
 
 
 def _check_k1_strided_operands(cuda):
-    """q/k/v as views into one fused [B, S, 3, H, D] projection (K1's WMMA
-    kernel), and rows that are not 16-byte aligned (the mma.sync kernel's
-    static mode, counted as "K1 static", not as K1)."""
+    """q/k/v as views into one fused [B, S, 3, H, D] projection (K1 on the
+    wgmma + TMA kernel), and rows that are not 16-byte aligned (the
+    mma.sync kernel's static mode, counted as "K1 static", not as K1)."""
     from vdx_torch.kernels.flash_attention import (flash_attention_dt,
                                                    flash_attention_dt_plain)
 
@@ -209,31 +248,24 @@ def _check_k1_strided_operands(cuda):
     odd = flat[4:].view(2, 640, 4, 40)  # base 8 bytes past alignment
     for (q, k, v), counter in ((qkv.unbind(dim=2), "K1"),
                                ((odd, odd, odd), "K1 static")):
-        before = _form_counts()
+        before = _counts()
         got = flash_attention_dt(q, k, v, scale=0.2, exp_impl="staticmax")
-        after = _form_counts()
+        after = _counts()
         assert after == dict(before, **{counter: before[counter] + 1}), after
         want = flash_attention_dt_plain(q, k, v, scale=0.2,
                                         exp_impl="staticmax")
         assert (got.float() - want.float()).abs().max().item() <= _tol(want)
 
 
-def _form_counts():
-    from vdx_torch.kernels.flash_attention import flash_attention_dt
-
-    return {"K1": flash_attention_dt.launches,
-            **flash_attention_dt.form_launches}
-
-
 def _check_form(cuda, form, dtype, B, Sq, Skv, H, D, block_k):
     """flash_attention_dt in one form against its plain version with the
     same block_k (kernels.flash_attention.plain_err_tol's bar), on
     contiguous operands and on views into one fused [B, S, 3, H, D]
-    projection; the form's own counter takes each launch, no other: K1's
-    WMMA kernel for bf16 staticmax at D < 128 (every view here has
-    16-byte aligned rows), else FORM_KERNEL's name (K1 static, K5, K1')."""
-    from vdx_torch.kernels.flash_attention import (FORM_KERNEL,
-                                                   flash_attention_dt,
+    projection; the form's own counter takes each launch, no other: K1 on
+    the wgmma + TMA kernel where kernel_for routes it (bf16 staticmax at
+    D <= 160; every view here has 16-byte aligned rows), else
+    FORM_KERNEL's name (K1 static, K5, K1')."""
+    from vdx_torch.kernels.flash_attention import (flash_attention_dt,
                                                    plain_err_tol)
 
     gen = torch.Generator(device=cuda).manual_seed(9)
@@ -242,13 +274,12 @@ def _check_form(cuda, form, dtype, B, Sq, Skv, H, D, block_k):
     qkv = _randn((B, Skv, 3, H, D), gen, cuda, dtype)
     for q, k, v in ((q, kv[:, :, 0].contiguous(), kv[:, :, 1].contiguous()),
                     qkv.unbind(dim=2)):
-        before = _form_counts()
+        before = _counts()
         got = flash_attention_dt(q, k, v, scale=D ** -0.5, block_k=block_k,
                                  exp_impl=form)
         torch.cuda.synchronize()
-        after = _form_counts()
-        wmma = form == "staticmax" and dtype == torch.bfloat16 and D < 128
-        name = "K1" if wmma else FORM_KERNEL[form]
+        after = _counts()
+        name = _counter(form, dtype, D, True)
         assert after == dict(before, **{name: before[name] + 1}), (form, after)
         err, _, tol, _ = plain_err_tol(got, q, k, v, scale=D ** -0.5,
                                        exp_impl=form, block_k=block_k)
@@ -455,6 +486,7 @@ def test_k1_matches_plain(cuda):
     flash_attention_dt (K1', K5, and K1 at D >= 128), K6-K9."""
     for case in K1_CASES:
         _check_k1(cuda, *case)
+    _check_k1(cuda, 2, 256, 300, 2, 40, below=True)
     _check_k1_strided_operands(cuda)
     for form in FORMS:
         for dtype in (torch.bfloat16, torch.float32):

@@ -1,5 +1,6 @@
-"""vdx_torch.core.rng against jax.random, and the fp32 policy's TF32
-scope, on the CPU.
+"""vdx_torch.core.rng against jax.random, the fp32 policy's TF32 scope,
+and the dtype and layout rule that routes flash attention to its CUDA
+kernels, on the CPU.
 
 The port draws vdx's initial noise, ``jax.random.normal(PRNGKey(seed),
 shape, float32)``, itself (threefry2x32 with partitionable counters). The
@@ -10,6 +11,8 @@ these seeds and shapes, at most 3 fp32 ulps of the element apart (7.2e-7
 absolute), 95% bit-equal. The bar is 4 ulps of each element. (torch's own
 ``special.erfinv`` lands up to 91 ulps, 2.2e-5, away: not used.)
 """
+
+import pathlib
 
 import jax
 import jax.numpy as jnp
@@ -82,3 +85,45 @@ def test_fp32_policy_turns_tf32_off_only_in_its_scope():
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = saved
+
+
+def test_flash_attention_routing_rule():
+    """kernels.flash_attention.kernel_for and counter_for, which both
+    wrappers call, for every case they see: each exp_impl form and K4
+    (None), bf16 and fp32, head dims 8..256, rows 16-byte aligned or not.
+    bf16 staticmax (K1)
+    and K4 at D % 8 == 0, D <= 160 on aligned rows go to the wgmma + TMA
+    kernel; every other bf16 case to the mma.sync template; fp32 always
+    to the SIMT kernel. Every route names a CUDA source, never the plain
+    version (which runs for CPU tensors only)."""
+    from vdx_torch.kernels import flash_attention as KA
+
+    csrc = pathlib.Path(KA.__file__).resolve().parent.parent / "csrc"
+    seen = {}
+    for form in (*KA.EXP_IMPLS, None):
+        for dtype in (torch.bfloat16, torch.float32):
+            for D in (8, 40, 80, 128, 160, 168, 256):
+                for aligned in (True, False):
+                    seen[form, dtype, D, aligned] = KA.kernel_for(
+                        form, dtype, D, aligned)
+    sm90 = {(form, torch.bfloat16, D, True) for form in ("staticmax", None)
+            for D in (8, 40, 80, 128, 160)}
+    for case, name in seen.items():
+        want = (KA.SM90 if case in sm90 else
+                KA.SIMT if case[1] == torch.float32 else KA.TEMPLATE)
+        assert name == want, (case, name)
+        assert (csrc / f"{name}.cu").is_file() and "plain" not in name, name
+    assert seen["staticmax", torch.bfloat16, 40, True] == KA.SM90
+    assert KA.SM90 not in {n for c, n in seen.items() if c[1] == torch.float32}
+    assert KA.kernel_for(None, torch.bfloat16, 20, True) == KA.TEMPLATE
+    # each route's counter (counter_for): K1/K4 exactly on the wgmma + TMA
+    # kernel, every name one of launch_counts' counters
+    counts = KA.launch_counts()
+    for case, name in seen.items():
+        counter = KA.counter_for(*case)
+        assert counter in counts, (case, counter)
+        assert (counter in ("K1", "K4")) == (name == KA.SM90), (case, counter)
+    for D, aligned in ((256, True), (40, False), (160, False)):
+        assert KA.counter_for("staticmax", torch.bfloat16, D, aligned) \
+            == "K1 static"
+    assert KA.counter_for(None, torch.bfloat16, 256, True) == "K4 template"

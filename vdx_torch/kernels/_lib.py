@@ -32,6 +32,8 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v",
 ]
+# the TMA kernel finds the driver's tensor-map encoder with dlopen/dlsym
+LINK_FLAGS = ["-ldl"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -41,10 +43,11 @@ _F = ctypes.c_float
 # C entry point -> argtypes. Every entry point returns cudaGetLastError().
 _SIGNATURES = {
     # q, k, v, o, B, Sq, Skv, H, D, q strides (b, s, h), k strides, v
-    # strides, o strides, q_mult, stream
-    "vdx_flash_attention_dt_staticmax_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I]
-    + [_L] * 12 + [_F, _P],
-    # the same, then mult (scale * log2e), form (vdx's exp_impl: 0 exp,
+    # strides, o strides, mult (scale * log2e), form (0 K4's running max,
+    # 1 K1's staticmax), stream
+    "vdx_flash_attention_sm90": [_P, _P, _P, _P, _I, _I, _I, _I, _I]
+    + [_L] * 12 + [_F, _I, _P],
+    # the same, then form (vdx's exp_impl: 0 exp,
     # 1 exp2, 2 fastexp2, 3 staticmax, 4 staticaug, 5 noexp, 6 mxu_only),
     # period (fastexp2's and noexp's statistics period), vec (16-byte row
     # loads), stream
@@ -77,7 +80,7 @@ def _sources():
 
 
 def sources_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for p in _sources():
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -130,7 +133,7 @@ def build() -> Path:
                           f"{' '.join(cmd)}\n{out}")
     tmp = BUILD_DIR / (LIB_NAME + tag)
     if not failed:
-        cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs), *LINK_FLAGS]
         res = subprocess.run(cmd, capture_output=True, text=True)
         logs.append(f"$ {' '.join(cmd)}\n{res.stdout}{res.stderr}")
         if res.returncode != 0:

@@ -43,11 +43,14 @@ scores by it, and compute the identical function. All three run as modes
 of one Hopper kernel (``csrc/temporal_attention.cu``; K9, in
 kernels/temporal_attention_cp.py, is its third mode).
 
-Each wrapper launches its CUDA kernel for a CUDA tensor (K1 at D < 128 in
-bf16 with 16-byte aligned rows: a WMMA kernel; every other form and head
-dim in bf16: modes of one mma.sync kernel; fp32: a SIMT kernel with fp32
-p; K6-K9: fp32 FMAs for either dtype) and raises on anything the kernel does not take; for a CPU
-tensor it computes its plain PyTorch version, which the tests and
+Each wrapper launches its CUDA kernel for a CUDA tensor and raises on
+anything the kernel does not take; :func:`kernel_for` is the one routing
+rule: K1 (staticmax) and K4 in bf16 at D % 8 == 0, D <= 160 with 16-byte
+aligned rows run the wgmma + TMA kernel (``csrc/flash_attention_sm90.cu``);
+every other form and head dim in bf16 a mode of the mma.sync kernel
+(``csrc/flash_attention_runmax.cu``); fp32 a SIMT kernel with fp32 p
+(``csrc/flash_attention_f32.cu``); K6-K9 fp32 FMAs for either dtype. For a
+CPU tensor each computes its plain PyTorch version, which the tests and
 ``chip_smoke.py`` hold the kernel against.
 """
 
@@ -71,16 +74,22 @@ EXP_IMPLS = ("exp", "exp2", "fastexp2", "staticmax", "staticaug", "noexp",
              "mxu_only")
 # each form's counter in flash_attention_dt.form_launches: K5 is
 # staticaug, K1' the running-max forms and the probes; "K1 static" is
-# staticmax in the forms kernels (D >= 128, fp32, or bf16 rows that are not
-# 16-byte aligned), while K1's WMMA kernel counts in .launches
+# staticmax in the forms kernels (D > 160, fp32, or bf16 rows that are not
+# 16-byte aligned), while K1 on the wgmma + TMA kernel counts in .launches
+# (see counter_for)
 FORM_KERNEL = {"exp": "K1' exp", "exp2": "K1' exp2",
                "fastexp2": "K1' fastexp2", "staticmax": "K1 static",
                "staticaug": "K5", "noexp": "K1' noexp",
                "mxu_only": "K1' mxu_only"}
 # fp32 outputs against the plain version: sums in another order
 FP32_TOL = 1e-4
-# the mma.sync and SIMT kernels take head dims up to 256
+# the mma.sync and SIMT kernels take head dims up to 256, the wgmma + TMA
+# kernel up to 160 (every SD-1.5 site: 40, 80, 160)
 MAX_D = 256
+SM90_MAX_D = 160
+# the CUDA kernels by source (csrc/<name>.cu)
+SM90, TEMPLATE, SIMT = ("flash_attention_sm90", "flash_attention_runmax",
+                        "flash_attention_f32")
 # csrc/temporal_attention.cu takes up to 32 frames and head dims up to 160
 TEMPORAL_MAX_F = 32
 TEMPORAL_MAX_D = 160
@@ -256,6 +265,54 @@ def _strides(*ts: torch.Tensor):
     return [st for t in ts for st in t.stride()[:3]]
 
 
+def kernel_for(exp_impl, dtype: torch.dtype, D: int, aligned: bool) -> str:
+    """The routing rule: which CUDA kernel computes flash attention in form
+    ``exp_impl`` (one of :data:`EXP_IMPLS`; None for K4, ``flash_attention``)
+    on ``dtype`` operands of head dim D, ``aligned`` when every q/k/v row
+    and base is 16-byte aligned. -> :data:`SM90` for K1 (staticmax) and K4
+    in bf16 at D % 8 == 0, 8 <= D <= 160 on aligned rows; else
+    :data:`TEMPLATE` (bf16) or :data:`SIMT` (fp32). Never the plain
+    version: that runs on CPU tensors only."""
+    if dtype == torch.float32:
+        return SIMT
+    if (exp_impl in (None, "staticmax") and aligned and D % 8 == 0
+            and 8 <= D <= SM90_MAX_D):
+        return SM90
+    return TEMPLATE
+
+
+def counter_for(exp_impl, dtype: torch.dtype, D: int, aligned: bool) -> str:
+    """The counter that takes the launch :func:`kernel_for` routes (same
+    arguments): "K1" (``flash_attention_dt.launches``) or "K4"
+    (``flash_attention.launches``) on the wgmma + TMA kernel; else the
+    form's :data:`FORM_KERNEL` name (``flash_attention_dt.form_launches``)
+    or "K4 template" (``flash_attention.template_launches``)."""
+    if kernel_for(exp_impl, dtype, D, aligned) == SM90:
+        return "K4" if exp_impl is None else "K1"
+    return "K4 template" if exp_impl is None else FORM_KERNEL[exp_impl]
+
+
+def launch_counts() -> dict:
+    """Every flash attention launch count, by :func:`counter_for`'s names."""
+    return {"K1": flash_attention_dt.launches, "K4": flash_attention.launches,
+            **flash_attention_dt.form_launches,
+            "K4 template": flash_attention.template_launches}
+
+
+def _launch_sm90(q, k, v, *, mult: float, static: bool, what: str):
+    """One launch of ``csrc/flash_attention_sm90.cu``: staticmax (K1,
+    ``mult`` folded into q) or the running max (K4, ``mult`` on the fp32
+    scores)."""
+    o = torch.empty_like(q, memory_format=torch.contiguous_format)
+    B, Sq, H, D = q.shape
+    err = _lib.lib().vdx_flash_attention_sm90(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        B, Sq, k.shape[1], H, D, *_strides(q, k, v, o), float(mult),
+        int(static), _lib.stream_ptr(q.device))
+    _lib.check(err, what)
+    return o
+
+
 def _launch_forms(q, k, v, *, scale: float, exp_impl: str,
                   period: int) -> torch.Tensor:
     """One launch of the form ``exp_impl`` of the mma.sync kernel (bf16,
@@ -292,13 +349,11 @@ def flash_attention_dt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     fp32 summation order on the TPU, and the Hopper kernels need none.
 
     CUDA: one launch on the current stream, no synchronise, D <= 256 (the
-    Hopper kernels' limit). staticmax at D < 128 in bf16 with 16-byte
-    aligned rows runs K1's WMMA kernel; every other form and head dim a
-    mode of the mma.sync kernel (bf16) or of the SIMT kernel (fp32).
-    K1's WMMA kernel counts in ``launches``; every other launch in
-    ``form_launches`` under :data:`FORM_KERNEL`'s name of its form
-    (staticmax in the forms kernels as "K1 static"). CPU: the plain
-    version.
+    Hopper kernels' limit), on the kernel :func:`kernel_for` names, counted
+    where :func:`counter_for` says: staticmax on the wgmma + TMA kernel (K1)
+    in ``launches``; every other launch in ``form_launches`` under
+    :data:`FORM_KERNEL`'s name of its form (staticmax in the forms kernels
+    as "K1 static"). CPU: the plain version.
     """
     if exp_impl not in EXP_IMPLS:
         raise ValueError(f"unknown exp_impl {exp_impl!r}; vdx takes {EXP_IMPLS}")
@@ -314,20 +369,15 @@ def flash_attention_dt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not 8 <= D <= MAX_D:
         raise ValueError(f"{what}: the Hopper kernels take head dims 8..{MAX_D} "
                          f"in steps of 8 (vdx has no upper bound), got {D}")
-    if (exp_impl == "staticmax" and q.dtype == torch.bfloat16 and D < 128
-            and _rows_16b_aligned(q, k, v)):
-        o = torch.empty_like(q, memory_format=torch.contiguous_format)
-        B, Sq, H, _ = q.shape
-        err = _lib.lib().vdx_flash_attention_dt_staticmax_bf16(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            B, Sq, k.shape[1], H, D, *_strides(q, k, v, o),
-            float(scale * LOG2E), _lib.stream_ptr(q.device))
-        _lib.check(err, "K1 flash_attention_dt")
+    counter = counter_for(exp_impl, q.dtype, D, _rows_16b_aligned(q, k, v))
+    if counter == "K1":
+        o = _launch_sm90(q, k, v, mult=scale * LOG2E, static=True,
+                         what="K1 flash_attention_dt staticmax")
         flash_attention_dt.launches += 1
     else:
         o = _launch_forms(q, k, v, scale=scale, exp_impl=exp_impl,
                           period=period)
-        flash_attention_dt.form_launches[FORM_KERNEL[exp_impl]] += 1
+        flash_attention_dt.form_launches[counter] += 1
     return o
 
 
@@ -340,10 +390,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """K4: running-max flash attention, [B, Sq, H, D] x [B, Skv, H, D]^2
     -> q's shape, any 1 <= D <= 256.
 
-    CUDA: the ``exp`` form of the mma.sync kernel (bf16; 16-byte row
-    loads when D % 8 == 0 and the rows are aligned, element loads
-    otherwise) or of the SIMT kernel (fp32); one launch on the current
-    stream, no synchronise. CPU: the plain version.
+    CUDA: one launch on the current stream, no synchronise, on the kernel
+    :func:`kernel_for` names: the wgmma + TMA kernel's running-max form
+    (bf16, D % 8 == 0, D <= 160, aligned rows), counted in ``launches``;
+    else the ``exp`` form of the mma.sync kernel (bf16; element loads when
+    D % 8 != 0 or the rows are not aligned) or of the SIMT kernel (fp32),
+    counted apart in ``template_launches`` ("K4 template"). CPU: the plain
+    version.
     """
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale=scale)
@@ -351,12 +404,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     D = q.shape[-1]
     if not 1 <= D <= MAX_D:
         raise ValueError(f"K4 takes head dims 1..{MAX_D}, got {D}")
-    o = _launch_forms(q, k, v, scale=scale, exp_impl="exp", period=128)
-    flash_attention.launches += 1
+    if counter_for(None, q.dtype, D, _rows_16b_aligned(q, k, v)) == "K4":
+        o = _launch_sm90(q, k, v, mult=scale * LOG2E, static=False,
+                         what="K4 flash_attention")
+        flash_attention.launches += 1
+    else:
+        o = _launch_forms(q, k, v, scale=scale, exp_impl="exp", period=128)
+        flash_attention.template_launches += 1
     return o
 
 
 flash_attention.launches = 0
+flash_attention.template_launches = 0
 
 
 # ------------------------------------------------- K6-K9: temporal sites --
