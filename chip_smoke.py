@@ -44,22 +44,28 @@ Phases, one flushed line each with its seconds:
      eager xla_bf16p path that impl="auto" runs at those sites today
  13. the attention forms: flash_attention_dt in vdx's exp_impl forms
      exp, exp2, fastexp2, noexp, mxu_only (K1') and staticaug (K5) at
-     [32,4096,8,40] and [32,576,8,160], and staticmax (K1, the wgmma +
-     TMA kernel) at both, each driven through the chained loop of the
+     [32,4096,8,40] and [32,576,8,160], all on the wgmma + TMA pipeline,
+     and staticmax (K1) at both and on the template at [32,576,8,256]
+     ("K1 static"), each driven through the chained loop of the
      attention micro-benchmark (scripts/bench_attn_torch.py, K = 16) with
      the counters reset, then against its plain version, timed beside its
      bound and a library call (SDPA; two matmuls for mxu_only; none for
      noexp)
-Phase 3 also checks the wgmma + TMA kernel in both forms at its edges
-(Sq and Skv off the tiles, Skv under one tile, q/k/v as views into one
-fused projection, staticmax at D = 160, rows whose every scaled logit is
-below -46), K4 at the template's edge shapes (D = 20, D = 256), K1/K4
-with fp32 operands, and every exp_impl form in bf16 and fp32 at ragged
-key counts. Bounds: the largest of the operations over the peak rate,
-the bytes over the memory rate and, for attention, the exp2 calls over
-16 a clock per SM at clocks.max.sm (a report, not a check). Then the kernels JSON line
-(each row's launches from the timed call of its own path), the
-nvidia-smi line and, last, the contract line {"ok": true, "device": ...}.
+Phase 3 also checks the wgmma + TMA pipeline at its edges (Sq and Skv off
+the tiles, Skv under one tile, q/k/v as views into one fused projection,
+rows whose every scaled logit is below -46; every form at each head-dim
+instance, fastexp2 and noexp over several periods, noexp with Skv not a
+multiple of the period), the template at its routes (K4 at D = 20 and
+256; every form at D = 256 and on rows 8 bytes past 16-byte alignment),
+K1/K4 with fp32 operands, and every exp_impl form in fp32 at ragged key
+counts; every counter of kernels.flash_attention.launch_counts() has to
+take a launch there. Bounds: the largest of the operations over the peak
+rate, the bytes over the memory rate and, for attention, the exp2 calls
+over 16 a clock per SM at clocks.max.sm, and for fastexp2 the cubic's
+instructions (counted from the SASS by scripts/sass_forms.py) at their
+pipes' rates (a report, not a check). Then the kernels JSON line (each
+row's launches from the run of its own path), the nvidia-smi line and,
+last, the contract line {"ok": true, "device": ...}.
 
 Any failure raises and ends the run with a non-zero exit; a hang ends
 with a stack trace (faulthandler). TF32 is off for every comparison
@@ -89,10 +95,12 @@ ROOT = pathlib.Path(__file__).resolve().parent
 H100_BF16_FLOPS = 989e12
 H100_FP32_FLOPS = 67e12
 H100_BYTES_S = 3.35e12
-# exp2 calls a second: 16 a clock per SM (CUDA C++ Programming Guide,
-# arithmetic instruction throughput, compute capability 9.0) times the SM
-# count and clocks.max.sm, both read on the card in phase 1
-EXP2_PER_S = {"rate": None}
+# SM clocks a second (the SM count times clocks.max.sm, both read on the
+# card in phase 1); exp2 calls run at 16 a clock per SM (CUDA C++
+# Programming Guide, arithmetic instruction throughput, compute
+# capability 9.0)
+SM_CLOCKS_PER_S = {"rate": None}
+EXP2_PER_CLOCK = 16
 WORKLOAD = dict(
     negative_prompt="bad quality, blurry, distorted",
     num_frames=16, height=512, width=512, guidance_scale=7.5,
@@ -137,14 +145,18 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return times[len(times) // 2]
 
 
-def bound(flops: float, nbytes: float, peak: float, exps: float = 0.0):
+def bound(flops: float, nbytes: float, peak: float, exps: float = 0.0,
+          alu_clocks: float = 0.0):
     """Least time for the work: the largest of operations over the peak
     rate for their type, bytes (inputs read once, outputs written once)
-    over the memory rate and exp2 calls over the special-function units'
-    rate. -> (ms, which term sets it: "operations", "bytes" or "exp2"; the
-    kernels line reports exp2 as "operations")."""
+    over the memory rate, exp2 calls over the special-function units'
+    rate, and ``alu_clocks`` SM clocks of FMA and integer pipe work over
+    every SM. -> (ms, which term sets it: "operations", "bytes", "exp2"
+    or "alu"; the kernels line reports exp2 and alu as "operations")."""
+    sm = SM_CLOCKS_PER_S["rate"]
     terms = {"operations": flops / peak, "bytes": nbytes / H100_BYTES_S,
-             "exp2": exps / EXP2_PER_S["rate"] if exps else 0.0}
+             "exp2": exps / (EXP2_PER_CLOCK * sm) if exps else 0.0,
+             "alu": alu_clocks / sm if alu_clocks else 0.0}
     term = max(terms, key=terms.get)
     return terms[term] * 1e3, term
 
@@ -315,11 +327,17 @@ def check_kernels(dev):
             f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
             f"{r['note'] + ' ' if r['note'] else ''}{r['seconds']:.1f}s")
     bad = [r["name"] for r in rows if not r["max_abs_err"] <= r["tol"]]
+    before = KA.launch_counts()
     bad += check_sm90_edges(dev)
     bad += check_attention_edges(dev)
+    edges = {n: c - before[n] for n, c in KA.launch_counts().items()}
+    log(f"[kernels] edge launches by counter: {edges}")
     if bad:
         raise SystemExit(f"kernels disagree with their plain versions: {bad}")
-    return rows
+    idle = [n for n, c in edges.items() if not c]
+    if idle:
+        raise SystemExit(f"routes never launched at the edges: {idle}")
+    return rows, edges
 
 
 def check_sm90_edges(dev):
@@ -392,14 +410,17 @@ def check_sm90_edges(dev):
 
 def check_attention_edges(dev):
     """K4 at shapes off the main path (D % 8 != 0, D = 256, a multi-tile
-    ragged Skv) in bf16, K1/K4 with fp32 operands, bf16 staticmax off the
-    wgmma + TMA kernel (the template's static mode, "K1 static": D = 256
-    over a ragged Skv, and rows 8 bytes past 16-byte alignment at D = 40
-    and 160), and every form of flash_attention_dt in bf16 and fp32 at a
-    ragged Skv (noexp also with Skv not a multiple of block_k, and 20
-    32-key tiles a period at D = 256), each against its plain version,
-    each launch counted once on the counter KA.counter_for names and on no
-    other; -> the names of the cases that fail."""
+    ragged Skv) in bf16, K1/K4 with fp32 operands, and every form of
+    flash_attention_dt: in bf16 on the wgmma + TMA pipeline at ragged Sq
+    and Skv at each head-dim instance (DP = 48, 80, 128, 160), fastexp2
+    and noexp over several periods with Skv a multiple of the period and
+    not, K5 on rows whose every scaled logit is below -46; on the
+    template (" template" counters, "K1 static") at D = 256 and on rows 8
+    bytes past 16-byte alignment at D = 40, 160 and 256; in fp32 (the
+    SIMT kernel) at a ragged Skv. Each against its plain version with
+    KA.plain_err_tol, each launch counted once on the counter
+    KA.counter_for names and on no other; -> the names of the cases that
+    fail."""
     import torch
 
     from vdx_torch.kernels import flash_attention as KA
@@ -456,40 +477,56 @@ def check_attention_edges(dev):
                else "(one bf16 ulp at max|plain|)"))
         if not err <= tol:
             bad.append(name)
-    # (form, dtype, B, Sq, Skv, H, D, block_k, aligned rows)
-    form_cases = [(form, dtype, 2, Sq, Skv, 2, D, 1024, True)
+    bf16, fp32 = torch.bfloat16, torch.float32
+    # (form, dtype, B, Sq, Skv, H, D, block_k, aligned rows, below -46)
+    # the wgmma + TMA pipeline: ragged Sq and Skv at each instance
+    form_cases = [(form, bf16, 2, 300, Skv, 3, D, 1024, True, False)
                   for form in KA.EXP_IMPLS
-                  for dtype in (torch.bfloat16, torch.float32)
-                  for Sq, Skv, D in ((300, 300, 40), (300, 700, 160))]
-    form_cases += [("noexp", torch.bfloat16, 2, 300, 300, 2, 40, 128, True),
-                   ("noexp", torch.bfloat16, 2, 300, 1100, 2, 256, 1024, True)]
-    # Skv a multiple of the period: no padded keys, several periods, at
-    # each instance (D <= 128, 160, 256)
-    form_cases += [(form, dtype, 2, 300, 1024, 2, D, 256, True)
+                  for Skv, D in ((300, 40), (333, 80), (333, 128), (700, 160))]
+    # fastexp2 and noexp over several periods of 256 keys at each
+    # instance: Skv = 1100, not a multiple of the period (noexp runs to
+    # 1280, its padded keys entering l), and Skv = 1024, a multiple (no
+    # padded keys; at D = 256 on the template)
+    form_cases += [(form, dtype, 2, Sq, Skv, 2, D, 256, True, False)
                    for form in ("fastexp2", "noexp")
-                   for dtype in (torch.bfloat16, torch.float32)
-                   for D in (40, 160, 256)]
-    # bf16 staticmax on the template ("K1 static"), past the wgmma + TMA
-    # kernel's D <= 160 and on rows it does not take
-    form_cases += [("staticmax", torch.bfloat16, 2, 300, 700, 2, 256, 1024, True),
-                   ("staticmax", torch.bfloat16, 2, 300, 333, 3, 40, 1024, False),
-                   ("staticmax", torch.bfloat16, 2, 300, 700, 2, 160, 1024, False)]
-    for form, dtype, B, Sq, Skv, H, D, block_k, aligned in form_cases:
+                   for dtype, Sq, Skv, D in (
+                       *((bf16, 200, 1100, D) for D in (40, 80, 128, 160)),
+                       *((dtype, 300, 1024, D) for dtype in (bf16, fp32)
+                         for D in (40, 160, 256)))]
+    form_cases += [("noexp", bf16, 2, 300, 300, 2, 40, 128, True, False),
+                   ("staticaug", bf16, 2, 256, 300, 2, 40, 1024, True, True)]
+    # the template: every form past the pipeline's D <= 160 and on rows
+    # it does not take
+    form_cases += [(form, bf16, 2, 300, Skv, 2, D, 1024, aligned, False)
+                   for form in KA.EXP_IMPLS
+                   for Skv, D, aligned in ((700, 256, True), (333, 40, False),
+                                           (700, 160, False), (333, 256, False))]
+    form_cases += [("noexp", bf16, 2, 300, 1100, 2, 256, 1024, True, False)]
+    # fp32: the SIMT kernel
+    form_cases += [(form, fp32, 2, 300, Skv, 2, D, 1024, True, False)
+                   for form in KA.EXP_IMPLS for Skv, D in ((300, 40), (700, 160))]
+    for form, dtype, B, Sq, Skv, H, D, block_k, aligned, below in form_cases:
         q, k, v = operands(dtype, B, Sq, Skv, H, D, aligned)
+        if below:
+            # k > 0, so a row of q at -8 (-4.5) scores about -95 (-53)
+            k = (k.float().abs() + 0.5).to(dtype)
+            q[:, 0], q[:, 1] = -8.0, -4.5
         kw = dict(scale=D ** -0.5, exp_impl=form, block_k=block_k)
         want = KA.counter_for(form, dtype, D, aligned)
         name = (f"{form} ({want}) {str(dtype)[6:]} "
                 f"[{B},{Sq}/{Skv},{H},{D}] block_k {block_k}"
-                + ("" if aligned else " rows 8 bytes past 16-byte alignment"))
-        if form == "staticmax" and dtype == torch.bfloat16 and (
-                D > KA.SM90_MAX_D or not aligned) and want != "K1 static":
-            bad.append(name + " (route)")
+                + ("" if aligned else " rows 8 bytes past 16-byte alignment")
+                + (" rows below -46" if below else ""))
         before = KA.launch_counts()
         out = KA.flash_attention_dt(q, k, v, **kw)
         counted(name, want, before)
         err, _, tol, mag = KA.plain_err_tol(out, q, k, v, **kw)
+        extra = ""
+        if below:
+            extra = (f" row -95 max|out|={out[:, 0].float().abs().max().item():.3e}"
+                     f" row -53 max|out|={out[:, 1].float().abs().max().item():.3e}")
         log(f"[kernels] edge {name}: max_abs_err={err:.3e} tol={tol:.3e} "
-            f"max|plain|={mag:.3e} (KA.plain_err_tol)")
+            f"max|plain|={mag:.3e} (KA.plain_err_tol){extra}")
         if not err <= tol:
             bad.append(name)
     return bad
@@ -553,9 +590,10 @@ def counters():
 
 
 def form_counters() -> dict:
-    """The template and SIMT kernels' counts, by KA.counter_for's names:
-    K1' per form, K5, staticmax as "K1 static" and K4 as "K4 template" (K1
-    and K4 on the wgmma + TMA kernel count apart, as "K1" and "K4")."""
+    """Every flash attention count but K1's and K4's on the wgmma + TMA
+    pipeline, by KA.counter_for's names: K1' per form and K5 on that
+    pipeline, and off it (the template and SIMT kernels) each form's
+    " template" name, staticmax as "K1 static" and K4 as "K4 template"."""
     from vdx_torch.kernels import flash_attention as KA
 
     return {n: c for n, c in KA.launch_counts().items() if n not in ("K1", "K4")}
@@ -616,10 +654,10 @@ def timed_call(pipe, label: str, **kw):
 
 
 def check_no_forms(by_stage: dict, what: str) -> None:
-    """The pipeline's attention is K1 and K4 on the wgmma + TMA kernel
-    only: no K1', K5, template staticmax ("K1 static") or template K4
-    ("K4 template") launch in a timed call, so the K1 and K4 counts prove
-    which kernel ran."""
+    """The pipeline's attention is K1 and K4 on the wgmma + TMA pipeline
+    only: no K1' or K5 launch on either kernel, no template staticmax ("K1
+    static") or template K4 ("K4 template") in a timed call, so the K1 and
+    K4 counts prove which kernel ran."""
     ran = {n: d[n] for d in by_stage.values() for n in form_counters() if d[n]}
     if ran:
         raise SystemExit(f"{what}: forms-kernel launches in the pipeline: "
@@ -888,8 +926,8 @@ def check_temporal(dev, sites: dict, calls: dict):
 
 # phase 13: the attention micro-benchmark's shapes, [32, 4096, 8, 40] (the
 # 512 level-0 self-attention, scripts/bench_attention.py's) and the 768
-# level-2 [32, 576, 8, 160], every form at both (staticmax: K1 on the
-# wgmma + TMA kernel; the others on the template)
+# level-2 [32, 576, 8, 160], every form at both, all on the wgmma + TMA
+# pipeline (staticmax: K1; the others K1' and K5)
 FORM_SHAPES = ((32, 4096, 8, 40), (32, 576, 8, 160))
 FORM_ROWS = [(form, shape) for shape in FORM_SHAPES
              for form in ("exp", "exp2", "fastexp2", "staticaug", "noexp",
@@ -898,16 +936,19 @@ FORM_ROWS = [(form, shape) for shape in FORM_SHAPES
 # static mode ("K1 static"), at the level-2 length
 FORM_ROWS.append(("staticmax", (32, 576, 8, 256)))
 # exp2 calls per score in each form (fastexp2 and noexp: none on the
-# special-function unit; mxu_only: no softmax)
+# special-function unit; mxu_only: no softmax); fastexp2's cubic takes
+# the FMA and integer pipes instead (bound term "alu", its SM clocks a
+# score counted from the SASS: scripts/sass_forms.py)
 FORM_EXPS = {"exp": 1, "exp2": 1, "fastexp2": 0, "staticmax": 1,
              "staticaug": 1, "noexp": 0, "mxu_only": 0}
 BENCH_ITERS = 16  # vdx's K in scripts/bench_attention.py
 
 
-def load_bench():
-    """scripts/bench_attn_torch.py as a module (its make_fn and chain)."""
+def load_script(name: str):
+    """scripts/<name>.py as a module (bench_attn_torch: make_fn, fresh and
+    chain; sass_forms: cubic_per_score)."""
     spec = importlib.util.spec_from_file_location(
-        "bench_attn_torch", ROOT / "scripts" / "bench_attn_torch.py")
+        name, ROOT / "scripts" / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -924,7 +965,16 @@ def check_forms(dev):
 
     from vdx_torch.kernels import flash_attention as KA
 
-    bench = load_bench()
+    from vdx_torch.kernels import _lib
+
+    bench = load_script("bench_attn_torch")
+    sass = load_script("sass_forms")
+    cubic, cubic_clocks, evals, diff = sass.cubic_per_score(
+        _lib.build_info["path"])
+    log(f"[forms] fastexp2's cubic from the SASS (scripts/sass_forms.py, "
+        f"DP = {sass.DP}; fastexp2 - noexp {diff} over {evals} "
+        f"evaluations): per score {cubic}, {cubic_clocks:.5f} SM clocks a score (fp32 128, "
+        f"integer/compare 64, conversion 16 a clock per SM; issue 128)")
     rows, runs = [], {}
     for i, (form, (B, S, H, D)) in enumerate(FORM_ROWS):
         t0 = time.time()
@@ -968,14 +1018,18 @@ def check_forms(dev):
         ms = cuda_ms(lambda: KA.flash_attention_dt(q, k, v, **kw))
         plain_ms = cuda_ms(plain_slice, reps=3, warmup=1) * (B // 2)
         lib_ms = cuda_ms(lib_fn, reps=5) if lib_fn else None
-        b_ms, b_by = bound(4.0 * B * H * S * S * D, 4 * q.numel() * 2,
-                                   H100_BF16_FLOPS,
-                                   float(FORM_EXPS[form] * B * H * S * S))
+        scores = float(B * H * S * S)
+        b_ms, b_by = bound(4.0 * scores * D, 4 * q.numel() * 2,
+                           H100_BF16_FLOPS, FORM_EXPS[form] * scores,
+                           cubic_clocks * scores if form == "fastexp2" else 0.0)
         note = "plain_ms: one two-entry slice timed, times 16"
         if form in ("fastexp2", "noexp"):
             note += ("; the kernel also sweeps q.k once more for each "
                      "1024-key period's max (2*B*H*S*S*D operations more, "
                      "the form's own cost, not in the bound)")
+        if form == "fastexp2":
+            note += (f"; bound term alu: the cubic's {cubic} instructions a "
+                     f"score from the SASS, {cubic_clocks:.5f} SM clocks")
         rows.append(dict(
             name=f"{kname} flash_attention_dt exp_impl={form} "
                  f"[{B},{S},{H},{D}] (attention micro-benchmark, "
@@ -1031,12 +1085,13 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    EXP2_PER_S["rate"] = 16.0 * sms * clock_mhz * 1e6
+    SM_CLOCKS_PER_S["rate"] = sms * clock_mhz * 1e6
     log(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)} "
         f"count {torch.cuda.device_count()} | nvidia-smi: {smi} | SMs {sms} "
         f"clocks.max.sm {clock_mhz:.0f} MHz: exp2 bound rate "
-        f"{EXP2_PER_S['rate']:.4e}/s (16 a clock per SM) | tf32 off "
+        f"{EXP2_PER_CLOCK * SM_CLOCKS_PER_S['rate']:.4e}/s (16 a clock per "
+        f"SM) | tf32 off "
         f"| hang budget {HANG_BUDGET_S}s")
 
     # 2. build
@@ -1057,7 +1112,7 @@ def main() -> int:
 
     # 3. kernels against their plain versions
     t0 = time.time()
-    rows = check_kernels(dev)
+    rows, edge_launches = check_kernels(dev)
     torch.cuda.empty_cache()
     log(f"[kernels] all within tolerance ({time.time() - t0:.1f}s)")
     # each row's launches come from the run of its own path: a timed call
@@ -1208,6 +1263,9 @@ def main() -> int:
             "launches_by_stage": d["by_stage"]}
         for p, d in paths.items()},
         "samplers": sampler_runs,
+        # every flash attention counter (kernels.flash_attention
+        # .launch_counts) with its launches at phase 3's edges
+        "edge_launches": edge_launches,
         "build_s": info["build_s"], "total_s": time.time() - t_start}
     log(json.dumps(summary))
     log(smi)

@@ -19,6 +19,8 @@ The shape defaults to the UNet's level-0 self-attention at 512x512,
   packed               ``xla_bf16p_packed`` (128 // S rows per block)
   dt:BQ:BK[:exp_impl]  kernels.flash_attention.flash_attention_dt with
                        those blocks and form (default exp, vdx's default)
+  k4                   kernels.flash_attention.flash_attention (K4, the
+                       UNet's route at 768x768 level 2)
 The inputs are bf16 standard normals, as vdx's. It runs on the card;
 ``--device cpu`` runs the same loop on the CPU at a small shape, for the
 tests (its times are CPU times).
@@ -42,7 +44,8 @@ ITERS = 16
 
 def make_fn(spec: str, scale: float):
     """spec -> f(q, k, v) over [B, S, H, D] tensors."""
-    from vdx_torch.kernels.flash_attention import flash_attention_dt
+    from vdx_torch.kernels.flash_attention import (flash_attention,
+                                                   flash_attention_dt)
     from vdx_torch.ops import attention as A
 
     eager = {
@@ -55,10 +58,12 @@ def make_fn(spec: str, scale: float):
     }
     if spec in eager:
         return eager[spec]
+    if spec == "k4":
+        return lambda q, k, v: flash_attention(q, k, v, scale=scale)
     parts = spec.split(":")
     if parts[0] != "dt" or len(parts) not in (3, 4):
-        raise ValueError(f"unknown spec {spec!r}: xla, bf16p, bf16ps, packed "
-                         "or dt:BQ:BK[:exp_impl]")
+        raise ValueError(f"unknown spec {spec!r}: xla, bf16p, bf16ps, packed, "
+                         "k4 or dt:BQ:BK[:exp_impl]")
     bq, bk = int(parts[1]), int(parts[2])
     exp_impl = parts[3] if len(parts) == 4 else "exp"
     return lambda q, k, v: flash_attention_dt(

@@ -1,7 +1,7 @@
-"""vdx_torch's CUDA kernels (K1 and K4 on the wgmma + TMA kernel, and on
-the template where the routing rule sends them; K1', K5: flash attention
-in every other ``exp_impl`` form; K2, K3: GroupNorm; K6-K9: temporal
-attention) against their plain PyTorch versions, on the card, the fp32
+"""vdx_torch's CUDA kernels (K1, K4, and K1', K5: flash attention in
+every other ``exp_impl`` form, on the wgmma + TMA pipeline and on the
+template where the routing rule sends them; K2, K3: GroupNorm; K6-K9:
+temporal attention) against their plain PyTorch versions, on the card, the fp32
 policy's TF32 scope in a forward on the card, plus an import-hygiene
 check that runs everywhere.
 
@@ -105,11 +105,13 @@ K3_C2560_CASES = [(torch.bfloat16, 32, 1024),  # 1024x1024, bf16
 FORMS = ("exp", "exp2", "fastexp2", "staticmax", "staticaug", "noexp",
          "mxu_only")
 # (B, Sq, Skv, H, D, block_k) for every form in bf16 and fp32: ragged Sq
-# and Skv at each instance (D <= 128, 160, 256; D = 256 takes 32-key
-# tiles), a period of 128 keys over a ragged tail, 640 keys (20 tiles of
-# 32) at D = 256, and Skv a multiple of the period (no padded keys, whose
-# -1e30 scores otherwise drive noexp's l to about -1e31 and its outputs
-# to near zero): 4 periods of 128, and 4 of 256 at D = 160 and D = 256
+# and Skv at each instance (bf16 at D <= 160 on the wgmma + TMA pipeline,
+# DP = 48, 80, 128, 160; D = 256 on the template, 32-key tiles), a period
+# of 128 keys over a ragged tail, 640 keys (20 tiles of 32) at D = 256,
+# and Skv a multiple of the period (no padded keys, whose -1e30 scores
+# otherwise drive noexp's l to about -1e31 and its outputs to near zero):
+# 4 periods of 128, and 4 of 256 at D = 160 and D = 256. bf16 runs each
+# case once more on rows 8 bytes past 16-byte alignment: the template.
 FORM_CASES = [(2, 300, 300, 2, 40, 128),
               (1, 200, 577, 2, 80, 1024),
               (1, 129, 700, 2, 160, 256),
@@ -117,7 +119,8 @@ FORM_CASES = [(2, 300, 300, 2, 40, 128),
               (1, 64, 300, 1, 256, 128),
               (1, 100, 512, 2, 40, 128),
               (1, 100, 1024, 2, 160, 256),
-              (1, 64, 1024, 1, 256, 256)]
+              (1, 64, 1024, 1, 256, 256),
+              (1, 200, 333, 2, 128, 256)]
 # (entry, P, F, H, D, dtype): the 512x512 level-0 motion site, F = 8 / 32
 # and D = 80 / 160, fp32 operands, K9 at F = 24
 TEMPORAL_CASES = [("k6", 8192, 16, 8, 40, torch.bfloat16),
@@ -260,11 +263,12 @@ def _check_k1_strided_operands(cuda):
 def _check_form(cuda, form, dtype, B, Sq, Skv, H, D, block_k):
     """flash_attention_dt in one form against its plain version with the
     same block_k (kernels.flash_attention.plain_err_tol's bar), on
-    contiguous operands and on views into one fused [B, S, 3, H, D]
-    projection; the form's own counter takes each launch, no other: K1 on
-    the wgmma + TMA kernel where kernel_for routes it (bf16 staticmax at
-    D <= 160; every view here has 16-byte aligned rows), else
-    FORM_KERNEL's name (K1 static, K5, K1')."""
+    contiguous operands, on views into one fused [B, S, 3, H, D]
+    projection (16-byte aligned rows) and, in bf16, on views whose base is
+    8 bytes past a 16-byte boundary; the counter counter_for names takes
+    each launch, no other: the form's own on the wgmma + TMA pipeline
+    (bf16, D <= 160, aligned rows: K1, K1' ..., K5), else its " template"
+    name ("K1 static" for staticmax)."""
     from vdx_torch.kernels.flash_attention import (flash_attention_dt,
                                                    plain_err_tol)
 
@@ -272,14 +276,20 @@ def _check_form(cuda, form, dtype, B, Sq, Skv, H, D, block_k):
     q = _randn((B, Sq, H, D), gen, cuda, dtype)
     kv = _randn((B, Skv, 2, H, D), gen, cuda, dtype)
     qkv = _randn((B, Skv, 3, H, D), gen, cuda, dtype)
-    for q, k, v in ((q, kv[:, :, 0].contiguous(), kv[:, :, 1].contiguous()),
-                    qkv.unbind(dim=2)):
+    sets = [(q, kv[:, :, 0].contiguous(), kv[:, :, 1].contiguous(), True),
+            (*qkv.unbind(dim=2), True)]
+    if dtype == torch.bfloat16:
+        n = B * Skv * H * D
+        flat = _randn((3 * n + 4,), gen, cuda, dtype)[4:]
+        odd = [flat[i * n:(i + 1) * n].view(B, Skv, H, D) for i in range(3)]
+        sets.append((odd[0][:, :Sq], odd[1], odd[2], False))
+    for q, k, v, aligned in sets:
         before = _counts()
         got = flash_attention_dt(q, k, v, scale=D ** -0.5, block_k=block_k,
                                  exp_impl=form)
         torch.cuda.synchronize()
         after = _counts()
-        name = _counter(form, dtype, D, True)
+        name = _counter(form, dtype, D, aligned)
         assert after == dict(before, **{name: before[name] + 1}), (form, after)
         err, _, tol, _ = plain_err_tol(got, q, k, v, scale=D ** -0.5,
                                        exp_impl=form, block_k=block_k)
@@ -483,7 +493,8 @@ def _check_wrappers_raise_on_what_kernels_do_not_take(cuda):
 @pytest.mark.cuda
 def test_k1_matches_plain(cuda):
     """The attention kernels: K1 and K4 (bf16 and fp32), every form of
-    flash_attention_dt (K1', K5, and K1 at D >= 128), K6-K9."""
+    flash_attention_dt (K1', K5, and K1 off its kernel) on both routes,
+    K6-K9."""
     for case in K1_CASES:
         _check_k1(cuda, *case)
     _check_k1(cuda, 2, 256, 300, 2, 40, below=True)
@@ -527,7 +538,8 @@ def _imports(path: pathlib.Path):
 def test_port_imports_no_jax_or_vdx():
     files = sorted((ROOT / "vdx_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_torch_port.py",
-        ROOT / "scripts" / "bench_attn_torch.py"]
+        ROOT / "scripts" / "bench_attn_torch.py",
+        ROOT / "scripts" / "sass_forms.py"]
     assert len(files) > 10
     bad = []
     for path in files:

@@ -91,11 +91,12 @@ def test_flash_attention_routing_rule():
     """kernels.flash_attention.kernel_for and counter_for, which both
     wrappers call, for every case they see: each exp_impl form and K4
     (None), bf16 and fp32, head dims 8..256, rows 16-byte aligned or not.
-    bf16 staticmax (K1)
-    and K4 at D % 8 == 0, D <= 160 on aligned rows go to the wgmma + TMA
-    kernel; every other bf16 case to the mma.sync template; fp32 always
-    to the SIMT kernel. Every route names a CUDA source, never the plain
-    version (which runs for CPU tensors only)."""
+    Every bf16 form and K4 at D % 8 == 0, D <= 160 on aligned rows go to
+    the wgmma + TMA pipeline (K1, K4 and exp to its K1/K4 source, the other
+    K1' forms and K5 to its forms source); every other bf16 case to the
+    mma.sync template; fp32 always to the SIMT kernel. Every route names a
+    CUDA source, never the plain version (which runs for CPU tensors
+    only)."""
     from vdx_torch.kernels import flash_attention as KA
 
     csrc = pathlib.Path(KA.__file__).resolve().parent.parent / "csrc"
@@ -106,24 +107,45 @@ def test_flash_attention_routing_rule():
                 for aligned in (True, False):
                     seen[form, dtype, D, aligned] = KA.kernel_for(
                         form, dtype, D, aligned)
-    sm90 = {(form, torch.bfloat16, D, True) for form in ("staticmax", None)
-            for D in (8, 40, 80, 128, 160)}
+    on_sm90 = {(form, torch.bfloat16, D, True) for form in (*KA.EXP_IMPLS, None)
+               for D in (8, 40, 80, 128, 160)}
     for case, name in seen.items():
-        want = (KA.SM90 if case in sm90 else
-                KA.SIMT if case[1] == torch.float32 else KA.TEMPLATE)
+        want = (KA.SIMT if case[1] == torch.float32 else
+                KA.TEMPLATE if case not in on_sm90 else
+                KA.SM90 if case[0] in ("staticmax", "exp", None) else
+                KA.SM90_FORMS)
         assert name == want, (case, name)
         assert (csrc / f"{name}.cu").is_file() and "plain" not in name, name
     assert seen["staticmax", torch.bfloat16, 40, True] == KA.SM90
-    assert KA.SM90 not in {n for c, n in seen.items() if c[1] == torch.float32}
+    assert seen["staticaug", torch.bfloat16, 160, True] == KA.SM90_FORMS
+    assert {KA.SM90, KA.SM90_FORMS}.isdisjoint(
+        {n for c, n in seen.items() if c[1] == torch.float32})
     assert KA.kernel_for(None, torch.bfloat16, 20, True) == KA.TEMPLATE
-    # each route's counter (counter_for): K1/K4 exactly on the wgmma + TMA
-    # kernel, every name one of launch_counts' counters
+    # each route's counter (counter_for): the form's own name on the
+    # wgmma + TMA pipeline (K1, K4, K1' ..., K5), " template" names off
+    # it ("K1 static" and "K4 template" for K1 and K4); every name one of
+    # launch_counts' counters, no name on two kernels
     counts = KA.launch_counts()
+    on_kernel = {}
     for case, name in seen.items():
         counter = KA.counter_for(*case)
         assert counter in counts, (case, counter)
-        assert (counter in ("K1", "K4")) == (name == KA.SM90), (case, counter)
+        on_sm90_route = name in (KA.SM90, KA.SM90_FORMS)
+        off_names = ("K1 static", "K4 template")
+        assert on_sm90_route == (not counter.endswith(" template")
+                                 and counter not in off_names), (case, counter)
+        on_kernel.setdefault(counter, set()).add(on_sm90_route)
+    assert all(len(v) == 1 for v in on_kernel.values()), on_kernel
+    assert set(on_kernel) == set(counts), set(counts) ^ set(on_kernel)
     for D, aligned in ((256, True), (40, False), (160, False)):
         assert KA.counter_for("staticmax", torch.bfloat16, D, aligned) \
             == "K1 static"
+        assert KA.counter_for("staticaug", torch.bfloat16, D, aligned) \
+            == "K5 template"
+        assert KA.counter_for("exp2", torch.bfloat16, D, aligned) \
+            == "K1' exp2 template"
+    assert KA.counter_for("staticaug", torch.bfloat16, 40, True) == "K5"
+    assert KA.counter_for("exp", torch.bfloat16, 80, True) == "K1' exp"
+    assert KA.counter_for("noexp", torch.float32, 40, True) \
+        == "K1' noexp template"
     assert KA.counter_for(None, torch.bfloat16, 256, True) == "K4 template"

@@ -1,14 +1,18 @@
-// K4, K1', K5 and K1 at D >= 128 — flash attention for Hopper (sm_90a),
-// bf16 operands, as one mma.sync kernel templated over the softmax form.
+// K4, K1', K5 and K1 off the wgmma + TMA pipeline — flash attention for
+// Hopper (sm_90a), bf16 operands, as one mma.sync kernel templated over
+// the softmax form (the template).
 //
 // Replaces: vdx/kernels/flash_attention.py
 //   flash_attention                       (K4; bodies _flash_kernel_*),
-//   flash_attention_dt, exp_impl = exp, exp2, fastexp2, noexp, mxu_only
-//                                         (K1'; body _flash_dt_kernel),
+//   flash_attention_dt, every exp_impl    (K1 staticmax; K1' exp, exp2,
+//                                         fastexp2, noexp, mxu_only; body
+//                                         _flash_dt_kernel),
 //   _flash_dt_staticaug                   (K5; body _flash_dt_staticaug_kernel),
-//   flash_attention_dt, exp_impl = staticmax, for head dims the WMMA kernel
-//                                         of csrc/flash_attention.cu (K1)
-//                                         does not take.
+// where the wgmma + TMA pipeline (flash_attention_sm90.cuh), which takes
+// every one of them in bf16 at D % 8 == 0, 8 <= D <= 160 on 16-byte
+// aligned rows, does not: head dims past 160 (up to 256), rows that are
+// not 16-byte aligned, and K4 at D % 8 != 0. The wrapper counts these
+// launches apart ("K1 static", "K4 template", "<form> template").
 //
 // Computes, for q, k, v of shape [B, S, H, D] (bf16, any strides whose
 // innermost is 1, any 1 <= D <= 256), non-causal attention in one of
@@ -40,10 +44,10 @@
 // staged twice: extra QK work that vdx's kernel does not do, counted as
 // the form's own cost, not K1's), then the p/PV sweep.
 //
-// What bounds it on this card: tensor-core operations. At the 768x768
-// level-2 site [32, 576, 8, 160] the two products are 54.4 GFLOP against
-// 94 MB of q/k/v/o traffic (0.055 ms at 989 TFLOP/s vs 0.028 ms at
-// 3.35 TB/s).
+// What bounds it on this card: tensor-core operations and bytes, about
+// even at the length of the 768x768 level-2 site: at [32, 576, 8, 256]
+// the two products are 87 GFLOP (0.088 ms at 989 TFLOP/s) against 0.090
+// ms of q/k/v/o bytes at 3.35 TB/s. No SD-1.5 site reaches it.
 //
 // What the design does about it: both products run on the tensor cores
 // through mma.sync.m16n8k16 (bf16 in, fp32 accumulate). One block owns one
@@ -66,8 +70,6 @@
 // inside fully unrolled loops, so the accumulators stay in registers. The
 // D <= 256 instances take 32-key tiles to bound registers (128 fp32
 // accumulators a thread), the others 64.
-//
-// Later work (not here): wgmma + TMA, a K/V double buffer.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -1,663 +1,22 @@
 // K1 and K4 — flash attention for Hopper (sm_90a) on wgmma + TMA, bf16
-// operands, one kernel templated over two softmax forms.
+// operands: the STATIC and RUNMAX forms of the pipeline in
+// flash_attention_sm90.cuh (its header has the design, the layouts and
+// what bounds it).
 //
 // Replaces: vdx/kernels/flash_attention.py
 //   flash_attention_dt(..., exp_impl="staticmax")   (K1; :204, pallas_call
 //                                  :265, body _flash_dt_kernel :292, the
 //                                  staticmax branch :336),
 //   flash_attention                                  (K4; :135, pallas_call
-//                                  :169, bodies :73, :746, :753).
-//
-// Computes, for q, k, v of shape [B, S, H, D] (bf16, any strides whose
-// innermost is 1, rows and bases 16-byte aligned, D % 8 == 0, D <= 160),
-// non-causal attention, one 128-query tile per CTA, key tile by key tile.
-// r() rounds to bf16.
-//   STATIC (K1):  q' = r(float(q) * mult), mult = scale * log2(e);
-//                 s = q'.k (fp32), p = 2^(s - 80), l = sum p (from the
-//                 unrounded p), acc = sum r(p) v, out = r(acc / max(l, 2^-126)).
-//                 p keeps its subnormal values (exp2f without flushing),
-//                 as the plain version does, so a row whose every scaled
-//                 logit is below about -69 gives zeros; vdx on the TPU,
-//                 which flushes them, gives zeros below -46.
-//   RUNMAX (K4):  s = (q.k) * mult in fp32, base 2 standing for vdx's base
-//                 e; m' = max(m, tilemax s), alpha = 2^(m - m'),
-//                 p = 2^(s - m'), l' = alpha l + sum p, acc' = alpha acc +
-//                 r(p) v, out = r(acc / l). The max is taken once per key
-//                 tile: the same function as vdx's once per block, up to
-//                 fp32 rounding.
-// Keys past Skv are masked in the last tile only (p = 0 in STATIC, s = -inf
-// in RUNMAX): TMA fills them with zeros, which would score 0 and put 2^-80
-// per padded key into STATIC's l.
-//
-// What bounds it on this card. At D = 40 the special-function unit: one
-// exp2 per score at 16 a clock per SM (CUDA C++ Programming Guide,
-// arithmetic instruction throughput, compute capability 9.0), 1.03 ms at
-// [32, 4096, 8, 40] on 132 SMs at 1980 MHz, against 0.70 ms of
-// tensor-core work. At D = 80 and
-// 160 the tensor cores: 4 * B * H * Sq * Skv * D operations at 989
-// TFLOP/s (0.44 ms at [32, 2304, 8, 80]; 0.055 ms at [32, 576, 8, 160],
-// where the bytes, 0.056 ms, weigh the same).
-//
-// What the design does about it:
-//  * One CTA per (b, h, 128 queries): a producer warpgroup, of which one
-//    thread issues every TMA load, and two consumer warpgroups of 64 query
-//    rows each. setmaxnreg moves registers from the producer (24) to the
-//    consumers (240): 128 * 24 + 256 * 240 = 384 * 168, the launch's share.
-//  * K and V tiles (BN keys) stream through a ring of ST stages (2-4,
-//    what fits in 227 KB), each with a full and an empty mbarrier, so
-//    loads run ahead of the products. Q is loaded once.
-//  * Both products run on wgmma.mma_async with fp32 accumulators in
-//    registers. QK^T is SS (Q and K K-major in shared memory). PV is RS: the
-//    score accumulators are re-packed in registers as bf16 A fragments (a
-//    warp of the warpgroup owns 16 rows in the lane pattern of mma.sync,
-//    so accumulator n8 blocks 2kk and 2kk + 1 form the A fragment of key
-//    slice kk), and V is read from shared memory as an MN-major B operand
-//    (the transpose bit). The S x S scores never reach shared or device
-//    memory.
-//  * The two consumer warpgroups take turns (two named barriers): in its
-//    turn a warpgroup issues the PV product of its previous tile and the
-//    QK^T product of its next one, then hands the tensor cores to the
-//    other warpgroup while it runs its exponentials and row sums, so the
-//    tensor cores and the special-function units work at once (at D = 40
-//    the exponentials set the pace; PERF.md has how close it comes).
-//  * TMA with one 4-D tensor map per operand, dims (D, H, S, B) with the
-//    tensor's own strides, box (BE, 1, rows, 1): elements past D and rows
-//    past S are zero-filled, which pads D in shared memory and fills the
-//    ragged last tiles. The maps are encoded on the host per call and
-//    passed as __grid_constant__ parameters; cuTensorMapEncodeTiled is
-//    found in the driver library with dlsym, so nothing links -lcuda.
-//  * The q fold of STATIC (r(float(q) * mult)) runs in shared memory after
-//    Q's TMA load, one multiply per element, which does not care about the
-//    swizzle, then fence.proxy.async before any wgmma reads the tile.
-//  * The output is written from the accumulators with predicated 4-byte
-//    stores (two adjacent columns of a row per lane): rows past Sq and
-//    columns past D are never written.
-//
-// Shared-memory layouts (what was chosen at each head dim). wgmma reads
-// K-major tiles in 32-, 64- or 128-byte swizzle atoms, and a TMA box's
-// inner extent must fit the atom: BE = SW / 2 bf16 values, so a tile of
-// DP columns is NB = DP / BE boxes, each [rows][BE], one TMA load each.
-//   D <= 48:  DP = 48,  32-byte atoms (3 boxes; 40 pads to 48, and the
-//             padding hides under the exponentials), BN = 128, 4 stages
-//   D <= 80:  DP = 80,  32-byte atoms (5 boxes; 80 whole), BN = 128, 4
-//   D <= 128: DP = 128, 128-byte atoms (2 boxes), BN = 64, 4
-//   D <= 160: DP = 160, 64-byte atoms (5 boxes; 160 whole), BN = 64, 4
-// 128-byte atoms (DP = 64) at D = 40 and 64-byte atoms (DP = 96) at
-// D = 80 were tried on an H100 and were not faster.
-// K-major descriptors (Q, K): rows SW bytes apart, stride byte offset
-// 8 * SW between 8-row groups, the leading offset unused; a k16 step inside
-// an atom advances the start address by 32 bytes, across atoms by one box.
-// MN-major descriptor (V): stride byte offset 8 * SW between 8-key groups,
-// leading byte offset BN * SW between boxes along D; a k16 step advances by
-// 16 key rows. Every box starts 1024-byte aligned, so the base offset is 0.
-//
-// Registers: a consumer thread holds BN / 2 score accumulators, BN / 4
-// packed bf16 A registers and DP / 2 output accumulators. ptxas allocates
-// the consumer branch within the launch's 168 registers a thread, not the
-// 240 that setmaxnreg makes room for, so BN = 128 spilled at DP = 128 and
-// 160; BN = 64 there holds 32 + 16 + 80 without spills, and was faster.
-// -Xptxas -v reports each instance's registers and spills.
+//                                  :169, bodies :73, :746, :753),
+// and runs flash_attention_dt(..., exp_impl="exp") (K1' exp) as K4's
+// instance: the same function, counted apart by the wrapper.
 //
 // Instances: one per (form, DP): eight.
 
-#include <cuda.h>  // CUtensorMap and the encoder's types (no libcuda link)
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <dlfcn.h>
-#include <stdint.h>
+#include "flash_attention_sm90.cuh"
 
 namespace {
-
-typedef __nv_bfloat16 bf16;
-
-constexpr int BQ = 128;          // queries per CTA: two consumer warpgroups
-constexpr int THREADS = 384;     // producer warpgroup + two consumers
-constexpr float STATIC_OFF = 80.0f;
-constexpr float L_FLOOR = 1.17549435e-38f;  // 2^-126
-constexpr int SMEM_MAX = 232448;            // 227 KB a block may use
-
-enum Form { RUNMAX = 0, STATIC = 1 };
-
-// Tile geometry of one instance: DP padded head dim, SW swizzle bytes, BN
-// keys per tile.
-template <int DP_, int SW_, int BN_>
-struct Cfg {
-  static constexpr int DP = DP_;
-  static constexpr int SW = SW_;
-  static constexpr int BN = BN_;
-  static constexpr int BE = SW / 2;           // bf16 values per box row
-  static constexpr int NB = DP / BE;          // boxes along D
-  static constexpr int Q_BYTES = BQ * DP * 2;
-  static constexpr int KV_BYTES = BN * DP * 2;   // one of K or V
-  static constexpr int STAGE_BYTES = 2 * KV_BYTES;
-  static constexpr int FIT = (SMEM_MAX - 1024 - 256 - Q_BYTES) / STAGE_BYTES;
-  static constexpr int ST = FIT > 4 ? 4 : FIT;   // ring stages
-  // 1024 bytes of slack to align the tiles, then the mbarriers
-  static constexpr int SMEM = 1024 + Q_BYTES + ST * STAGE_BYTES + 256;
-  static_assert(DP % BE == 0 && DP % 16 == 0, "DP must fill whole boxes");
-  static_assert(ST >= 2, "two stages must fit");
-};
-
-// ---------------------------------------------------------------- PTX --
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  return done != 0;
-}
-
-// Waits for the phase of `parity` to complete. A wait that outlasts 2^34
-// clocks (seconds; a tile takes microseconds) means a lost load or
-// arrival: it traps, so the launch fails instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try(bar, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try(bar, parity))
-    if (clock64() - t0 > (1ll << 34)) __trap();
-}
-
-// one box of a 4-D tensor map into shared memory, completing on `bar`
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
-         "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-__device__ __forceinline__ void bar_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
-}
-
-__device__ __forceinline__ void bar_arrive(int id, int n) {
-  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(n) : "memory");
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wg_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keep the compiler from touching accumulators across an async product
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-
-// wgmma shared-memory matrix descriptor: start address, leading and stride
-// byte offsets (16-byte units), base offset 0, layout type from the swizzle
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo, int sw) {
-  const uint64_t mode = sw == 128 ? 1 : sw == 64 ? 2 : 3;
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (mode << 62);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo: low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// m64nNk16 bf16 -> fp32: SS with both operands K-major (QK^T), RS with B
-// MN-major (PV). N / 2 accumulators a thread.
-template <int N>
-__device__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db,
-                         int scale_d);
-template <int N>
-__device__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
-                         uint64_t db);
-
-template <>
-__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t da,
-                                             uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
-        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t da,
-                                             uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
-        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
-        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
-        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
-        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
-        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<48>(float (&d)[24],
-                                             const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, "
-      "{%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
-        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<80>(float (&d)[40],
-                                             const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39}, "
-      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
-        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
-                                             const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
-        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
-        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
-        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
-        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
-        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<160>(float (&d)[80],
-                                             const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79}, "
-      "{%80, %81, %82, %83}, %84, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
-        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
-        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
-        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
-        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
-        "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
-        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]),
-        "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
-        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// ------------------------------------------------------------- kernel --
-
-template <int FORM, int DP, int SW, int BN>
-struct Consumer {
-  using C = Cfg<DP, SW, BN>;
-  static constexpr int NS = BN / 2;    // score accumulators a thread
-  static constexpr int NO = DP / 2;    // output accumulators a thread
-
-  float S[NS];
-  uint32_t P[BN / 16][4];
-  float O[NO];
-  float m0, m1, l0, l1;  // rows g and g + 8: running max (RUNMAX), sums
-
-  // S = Q_wg . K_tile^T
-  __device__ __forceinline__ void issue_qk(uint32_t q_rows, uint32_t k_tile) {
-#pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk) {
-      const int bx = kk * 16 / C::BE;
-      const int in = kk * 16 % C::BE;
-      const uint64_t da = make_desc(q_rows + bx * BQ * SW + in * 2, 16, 8 * SW, SW);
-      const uint64_t db = make_desc(k_tile + bx * BN * SW + in * 2, 16, 8 * SW, SW);
-      wgmma_ss<BN>(S, da, db, kk > 0);
-    }
-  }
-
-  // O += r(P) . V_tile
-  __device__ __forceinline__ void issue_pv(uint32_t v_tile) {
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk)
-      wgmma_rs<DP>(O, P[kk], make_desc(v_tile + kk * 16 * SW, BN * SW, 8 * SW, SW));
-  }
-
-  // scores of key tile k0 -> p (packed into P), row statistics, O rescale
-  __device__ __forceinline__ void softmax(int k0, int Skv, int t, float mult) {
-    const bool ragged = k0 + BN > Skv;
-    if (FORM == STATIC) {
-#pragma unroll
-      for (int i = 0; i < BN / 8; ++i) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float p = exp2f(S[4 * i + e] - STATIC_OFF);
-          if (ragged && k0 + 8 * i + 2 * t + (e & 1) >= Skv) p = 0.0f;
-          S[4 * i + e] = p;
-        }
-        l0 += S[4 * i] + S[4 * i + 1];
-        l1 += S[4 * i + 2] + S[4 * i + 3];
-      }
-    } else {
-      const float ninf = __int_as_float(0xff800000);
-      float mx0 = ninf, mx1 = ninf;
-#pragma unroll
-      for (int i = 0; i < BN / 8; ++i) {
-        if (ragged) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            if (k0 + 8 * i + 2 * t + (e & 1) >= Skv) S[4 * i + e] = ninf;
-        }
-        mx0 = fmaxf(mx0, fmaxf(S[4 * i], S[4 * i + 1]));
-        mx1 = fmaxf(mx1, fmaxf(S[4 * i + 2], S[4 * i + 3]));
-      }
-      // the four lanes of a quad hold one row's columns
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-      // mult > 0: max(s) * mult is max(s * mult) exactly
-      const float mn0 = fmaxf(m0, mx0 * mult);
-      const float mn1 = fmaxf(m1, mx1 * mult);
-      const float a0 = exp2f(m0 - mn0);  // 0 on the first tile
-      const float a1 = exp2f(m1 - mn1);
-      m0 = mn0;
-      m1 = mn1;
-      float ps0 = 0.0f, ps1 = 0.0f;
-#pragma unroll
-      for (int i = 0; i < BN / 8; ++i) {
-        S[4 * i] = exp2f(fmaf(S[4 * i], mult, -mn0));
-        S[4 * i + 1] = exp2f(fmaf(S[4 * i + 1], mult, -mn0));
-        S[4 * i + 2] = exp2f(fmaf(S[4 * i + 2], mult, -mn1));
-        S[4 * i + 3] = exp2f(fmaf(S[4 * i + 3], mult, -mn1));
-        ps0 += S[4 * i] + S[4 * i + 1];
-        ps1 += S[4 * i + 2] + S[4 * i + 3];
-      }
-      l0 = a0 * l0 + ps0;
-      l1 = a1 * l1 + ps1;
-#pragma unroll
-      for (int i = 0; i < NO / 4; ++i) {
-        O[4 * i] *= a0;
-        O[4 * i + 1] *= a0;
-        O[4 * i + 2] *= a1;
-        O[4 * i + 3] *= a1;
-      }
-    }
-    // accumulator n8 blocks 2kk, 2kk + 1 -> the A fragment of key slice kk
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      P[kk][0] = pack_bf16(S[8 * kk], S[8 * kk + 1]);
-      P[kk][1] = pack_bf16(S[8 * kk + 2], S[8 * kk + 3]);
-      P[kk][2] = pack_bf16(S[8 * kk + 4], S[8 * kk + 5]);
-      P[kk][3] = pack_bf16(S[8 * kk + 6], S[8 * kk + 7]);
-    }
-  }
-};
-
-template <int FORM, int DP, int SW, int BN>
-__device__ __forceinline__ void flash_sm90_body(
-    const CUtensorMap& qmap, const CUtensorMap& kmap, const CUtensorMap& vmap,
-    bf16* __restrict__ o, int Sq, int Skv, int D, long long osb,
-    long long oss, long long osh, float mult) {
-  using C = Cfg<DP, SW, BN>;
-  extern __shared__ unsigned char smem_raw[];
-  const uint32_t raw = smem_u32(smem_raw);
-  const uint32_t base = (raw + 1023u) & ~1023u;
-  unsigned char* gbase = smem_raw + (base - raw);
-  const uint32_t sQ = base;
-  const uint32_t sKV = base + C::Q_BYTES;  // stage s: K at + s * STAGE_BYTES
-  const uint32_t bars = sKV + C::ST * C::STAGE_BYTES;
-  const uint32_t qbar = bars;
-  const uint32_t full0 = bars + 8;
-  const uint32_t empty0 = bars + 8 + 8 * C::ST;
-
-  const int n_tiles = (Skv + BN - 1) / BN;
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int wg = threadIdx.x >> 7;
-
-  if (threadIdx.x == 0) {
-    mbar_init(qbar, 1);
-    for (int s = 0; s < C::ST; ++s) {
-      mbar_init(full0 + 8 * s, 1);
-      mbar_init(empty0 + 8 * s, 8);  // one arrival per consumer warp
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
-  if (wg == 0) {
-    // ---- producer: one thread keeps the K/V ring full ----
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
-    if (threadIdx.x == 0) {
-      mbar_expect_tx(qbar, C::Q_BYTES);
-#pragma unroll
-      for (int bx = 0; bx < C::NB; ++bx)
-        tma_load(sQ + bx * BQ * SW, &qmap, qbar, bx * C::BE, h, q0, b);
-      for (int j = 0; j < n_tiles; ++j) {
-        const int s = j % C::ST;
-        const int r = j / C::ST;
-        if (r > 0) mbar_wait(empty0 + 8 * s, (r - 1) & 1);
-        const uint32_t full = full0 + 8 * s;
-        const uint32_t kt = sKV + s * C::STAGE_BYTES;
-        mbar_expect_tx(full, C::STAGE_BYTES);
-#pragma unroll
-        for (int bx = 0; bx < C::NB; ++bx) {
-          tma_load(kt + bx * BN * SW, &kmap, full, bx * C::BE, h, j * BN, b);
-          tma_load(kt + C::KV_BYTES + bx * BN * SW, &vmap, full, bx * C::BE, h,
-                   j * BN, b);
-        }
-      }
-    }
-  } else {
-    // ---- consumers: warpgroup c owns query rows 64c .. 64c + 63 ----
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
-    const int c = wg - 1;
-    const int tid = threadIdx.x - 128 * wg;
-    const int warp = tid >> 5;
-    const int lane = tid & 31;
-    const int g = lane >> 2;
-    const int t = lane & 3;
-    const uint32_t q_rows = sQ + 64 * c * SW;
-    const int bar_me = 1 + c;    // named barriers 1, 2: the turns
-    const int bar_other = 2 - c;
-
-    mbar_wait(qbar, 0);
-    if (FORM == STATIC) {
-      // q' = r(float(q) * mult) in place, elementwise (swizzle-agnostic),
-      // then make the generic-proxy writes visible to wgmma
-#pragma unroll
-      for (int bx = 0; bx < C::NB; ++bx) {
-        uint4* p = reinterpret_cast<uint4*>(gbase + bx * BQ * SW + 64 * c * SW);
-        for (int i = tid; i < 64 * SW / 16; i += 128) {
-          uint4 v = p[i];
-          bf16* e = reinterpret_cast<bf16*>(&v);
-#pragma unroll
-          for (int k = 0; k < 8; ++k)
-            e[k] = __float2bfloat16_rn(__bfloat162float(e[k]) * mult);
-          p[i] = v;
-        }
-      }
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      bar_sync(3 + c, 128);
-    }
-
-    Consumer<FORM, DP, SW, BN> st;
-#pragma unroll
-    for (int i = 0; i < Consumer<FORM, DP, SW, BN>::NO; ++i) st.O[i] = 0.0f;
-    st.m0 = st.m1 = __int_as_float(0xff800000);
-    st.l0 = st.l1 = 0.0f;
-
-    if (c == 1) bar_arrive(1, 256);  // warpgroup 0 takes the first turn
-
-    // tile 0: QK^T alone
-    mbar_wait(full0, 0);
-    bar_sync(bar_me, 256);
-    wg_fence();
-    st.issue_qk(q_rows, sKV);
-    wg_commit();
-    bar_arrive(bar_other, 256);
-    wg_wait0();
-    fence_regs(st.S);
-    st.softmax(0, Skv, t, mult);
-
-    for (int j = 1; j < n_tiles; ++j) {
-      const int s = j % C::ST;
-      const int sp = (j - 1) % C::ST;
-      mbar_wait(full0 + 8 * s, (j / C::ST) & 1);
-      bar_sync(bar_me, 256);
-      wg_fence();
-      st.issue_qk(q_rows, sKV + s * C::STAGE_BYTES);
-      st.issue_pv(sKV + sp * C::STAGE_BYTES + C::KV_BYTES);
-      wg_commit();
-      bar_arrive(bar_other, 256);
-      wg_wait0();
-      fence_regs(st.S);
-      fence_regs(st.O);
-      if (lane == 0) mbar_arrive(empty0 + 8 * sp);
-      st.softmax(j * BN, Skv, t, mult);
-    }
-
-    // the last tile's PV
-    const int sl = (n_tiles - 1) % C::ST;
-    bar_sync(bar_me, 256);
-    wg_fence();
-    st.issue_pv(sKV + sl * C::STAGE_BYTES + C::KV_BYTES);
-    wg_commit();
-    bar_arrive(bar_other, 256);
-    wg_wait0();
-    fence_regs(st.O);
-    if (c == 0) bar_sync(1, 256);  // takes warpgroup 1's last hand-over
-
-    // out = r(acc / l); l's four partial sums per row live in a quad
-    float l0 = st.l0, l1 = st.l1;
-    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-    if (FORM == STATIC) {
-      l0 = fmaxf(l0, L_FLOOR);
-      l1 = fmaxf(l1, L_FLOOR);
-    }
-    const int r0 = q0 + 64 * c + 16 * warp + g;
-    const int r1 = r0 + 8;
-    bf16* ob = o + b * osb + h * osh;
-#pragma unroll
-    for (int i = 0; i < DP / 8; ++i) {
-      const int col = 8 * i + 2 * t;
-      if (col < D) {
-        if (r0 < Sq)
-          *reinterpret_cast<uint32_t*>(ob + r0 * oss + col) =
-              pack_bf16(st.O[4 * i] / l0, st.O[4 * i + 1] / l0);
-        if (r1 < Sq)
-          *reinterpret_cast<uint32_t*>(ob + r1 * oss + col) =
-              pack_bf16(st.O[4 * i + 2] / l1, st.O[4 * i + 3] / l1);
-      }
-    }
-  }
-}
 
 // two kernel names, so a profile tells K1 from K4
 template <int DP, int SW, int BN>
@@ -669,7 +28,7 @@ flash_sm90_static_kernel(const __grid_constant__ CUtensorMap qmap,
                          long long osb, long long oss, long long osh,
                          float mult) {
   flash_sm90_body<STATIC, DP, SW, BN>(qmap, kmap, vmap, o, Sq, Skv, D, osb, oss,
-                                  osh, mult);
+                                  osh, mult, true, 0);
 }
 
 template <int DP, int SW, int BN>
@@ -681,99 +40,23 @@ flash_sm90_runmax_kernel(const __grid_constant__ CUtensorMap qmap,
                          long long osb, long long oss, long long osh,
                          float mult) {
   flash_sm90_body<RUNMAX, DP, SW, BN>(qmap, kmap, vmap, o, Sq, Skv, D, osb, oss,
-                                  osh, mult);
+                                  osh, mult, false, 0);
 }
 
-// ---------------------------------------------------------------- host --
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// the driver's cuTensorMapEncodeTiled (in the libcuda that the runtime
-// already loaded), looked up once
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* h = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (h == nullptr) h = dlopen("libcuda.so.1", RTLD_NOW);
-    if (h != nullptr)
-      fn = reinterpret_cast<EncodeTiled>(dlsym(h, "cuTensorMapEncodeTiled"));
-  }
-  return fn;
-}
-
-// [B, S, H, D] bf16 at `p` with element strides (sb, ss, sh) as dims
-// (D, H, S, B), box (box_e, 1, rows, 1), zero fill out of bounds. A size-1
-// dim's stride is never used; it gets a packed one so any view encodes.
-bool encode(CUtensorMap* map, const void* p, int B, int S, int H, int D,
-            long long sb, long long ss, long long sh, int box_e, int rows,
-            int sw) {
-  EncodeTiled fn = encoder();
-  if (fn == nullptr) return false;
-  if (H == 1) sh = D;
-  if (S == 1) ss = sh * H;
-  if (B == 1) sb = ss * S;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2,
-                                 (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)box_e, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle swz = sw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                 : sw == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                            : CU_TENSOR_MAP_SWIZZLE_32B;
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
+// the kernel of form FORM at one instance, for launch_d
 template <int FORM, int DP, int SW, int BN>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int Sq, int Skv, int H, int D, const long long* st,
-                   float mult, cudaStream_t stream) {
-  using C = Cfg<DP, SW, BN>;
-  CUtensorMap qm, km, vm;
-  if (!encode(&qm, q, B, Sq, H, D, st[0], st[1], st[2], C::BE, BQ, SW) ||
-      !encode(&km, k, B, Skv, H, D, st[3], st[4], st[5], C::BE, BN, SW) ||
-      !encode(&vm, v, B, Skv, H, D, st[6], st[7], st[8], C::BE, BN, SW))
-    return cudaErrorInvalidValue;
-  auto kern = FORM == STATIC ? flash_sm90_static_kernel<DP, SW, BN>
-                             : flash_sm90_runmax_kernel<DP, SW, BN>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
-  if (err != cudaSuccess) return err;
-  dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  kern<<<grid, THREADS, C::SMEM, stream>>>(
-      qm, km, vm, static_cast<bf16*>(o), Sq, Skv, D, st[9], st[10], st[11],
-      mult);
-  return cudaGetLastError();
-}
-
-template <int FORM>
-cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
-                     int B, int Sq, int Skv, int H, int D, const long long* st,
-                     float mult, cudaStream_t s) {
-  if (D <= 48) return launch<FORM, 48, 32, 128>(q, k, v, o, B, Sq, Skv, H, D, st, mult, s);
-  if (D <= 80) return launch<FORM, 80, 32, 128>(q, k, v, o, B, Sq, Skv, H, D, st, mult, s);
-  if (D <= 128) return launch<FORM, 128, 128, 64>(q, k, v, o, B, Sq, Skv, H, D, st, mult, s);
-  return launch<FORM, 160, 64, 64>(q, k, v, o, B, Sq, Skv, H, D, st, mult, s);
-}
-
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
+struct Pick {
+  static auto kernel() {
+    return FORM == STATIC ? flash_sm90_static_kernel<DP, SW, BN>
+                          : flash_sm90_runmax_kernel<DP, SW, BN>;
+  }
+};
 
 }  // namespace
 
-// form: 0 RUNMAX (K4: mult = scale * log2e on the fp32 scores), 1 STATIC
-// (K1: mult folded into q). Takes D % 8 == 0, 8 <= D <= 160, 16-byte
-// aligned bases and q/k/v strides in multiples of 8 elements (the wrapper
-// decides); strides in elements (b, s, h) for q, k, v, o.
+// form: 0 RUNMAX (K4 and K1' exp: mult = scale * log2e on the fp32
+// scores), 1 STATIC (K1: mult folded into q). Takes what operands_ok
+// says (the wrapper decides); strides in elements (b, s, h) for q, k, v, o.
 extern "C" int vdx_flash_attention_sm90(
     const void* q, const void* k, const void* v, void* o,
     int B, int Sq, int Skv, int H, int D,
@@ -785,16 +68,13 @@ extern "C" int vdx_flash_attention_sm90(
   const long long st[12] = {qsb, qss, qsh, ksb, kss, ksh,
                             vsb, vss, vsh, osb, oss, osh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  bool ok = D % 8 == 0 && D >= 8 && D <= 160 && Sq >= 1 && Skv >= 1 &&
-            H <= 65535 && B <= 65535 && (form == 0 || form == 1) &&
-            aligned16(q) && aligned16(k) && aligned16(v) &&
-            (reinterpret_cast<uintptr_t>(o) & 3) == 0;
-  for (int i = 0; i < 9; ++i) ok = ok && st[i] % 8 == 0;
-  for (int i = 9; i < 12; ++i) ok = ok && st[i] % 2 == 0;
-  if (!ok) return (int)cudaErrorInvalidValue;
+  if (!operands_ok(q, k, v, o, B, Sq, Skv, H, D, st) || (form != 0 && form != 1))
+    return (int)cudaErrorInvalidValue;
   if (form == 1)
-    return (int)launch_d<STATIC>(q, k, v, o, B, Sq, Skv, H, D, st, mult, s);
-  return (int)launch_d<RUNMAX>(q, k, v, o, B, Sq, Skv, H, D, st, mult, s);
+    return (int)launch_d<Pick, STATIC>(q, k, v, o, B, Sq, Skv, H, D, st,
+                                       mult, s);
+  return (int)launch_d<Pick, RUNMAX>(q, k, v, o, B, Sq, Skv, H, D, st, mult,
+                                     s);
 }
 
 extern "C" const char* vdx_error_string(int err) {

@@ -43,10 +43,15 @@ _F = ctypes.c_float
 # C entry point -> argtypes. Every entry point returns cudaGetLastError().
 _SIGNATURES = {
     # q, k, v, o, B, Sq, Skv, H, D, q strides (b, s, h), k strides, v
-    # strides, o strides, mult (scale * log2e), form (0 K4's running max,
-    # 1 K1's staticmax), stream
+    # strides, o strides, mult (scale * log2e), form (0 the running max of
+    # K4 and exp, 1 K1's staticmax), stream
     "vdx_flash_attention_sm90": [_P, _P, _P, _P, _I, _I, _I, _I, _I]
     + [_L] * 12 + [_F, _I, _P],
+    # the same, then form (vdx's exp_impl code: 1 exp2, 2 fastexp2,
+    # 4 staticaug, 5 noexp, 6 mxu_only), period (fastexp2's and noexp's
+    # statistics period), stream
+    "vdx_flash_attention_sm90_forms": [_P, _P, _P, _P, _I, _I, _I, _I, _I]
+    + [_L] * 12 + [_F, _I, _I, _P],
     # the same, then form (vdx's exp_impl: 0 exp,
     # 1 exp2, 2 fastexp2, 3 staticmax, 4 staticaug, 5 noexp, 6 mxu_only),
     # period (fastexp2's and noexp's statistics period), vec (16-byte row

@@ -45,13 +45,16 @@ kernels/temporal_attention_cp.py, is its third mode).
 
 Each wrapper launches its CUDA kernel for a CUDA tensor and raises on
 anything the kernel does not take; :func:`kernel_for` is the one routing
-rule: K1 (staticmax) and K4 in bf16 at D % 8 == 0, D <= 160 with 16-byte
-aligned rows run the wgmma + TMA kernel (``csrc/flash_attention_sm90.cu``);
-every other form and head dim in bf16 a mode of the mma.sync kernel
-(``csrc/flash_attention_runmax.cu``); fp32 a SIMT kernel with fp32 p
-(``csrc/flash_attention_f32.cu``); K6-K9 fp32 FMAs for either dtype. For a
-CPU tensor each computes its plain PyTorch version, which the tests and
-``chip_smoke.py`` hold the kernel against.
+rule: every form and K4 in bf16 at D % 8 == 0, D <= 160 with 16-byte
+aligned rows run the wgmma + TMA pipeline (``csrc/flash_attention_sm90.cuh``:
+K1, K4 and exp in ``csrc/flash_attention_sm90.cu``, the other K1' forms and
+K5 in ``csrc/flash_attention_sm90_forms.cu``); bf16 past D = 160, on rows
+that are not 16-byte aligned, and K4 at D % 8 != 0 a mode of the mma.sync
+template (``csrc/flash_attention_runmax.cu``); fp32 a SIMT kernel with fp32
+p (``csrc/flash_attention_f32.cu``); K6-K9 fp32 FMAs for either dtype.
+:func:`counter_for` names each route's counter. For a CPU tensor each
+computes its plain PyTorch version, which the tests and ``chip_smoke.py``
+hold the kernel against.
 """
 
 from __future__ import annotations
@@ -72,24 +75,32 @@ EXP2_C3 = 0.0780238760040786
 # vdx's exp_impl forms, in the order of the CUDA entry points' form codes
 EXP_IMPLS = ("exp", "exp2", "fastexp2", "staticmax", "staticaug", "noexp",
              "mxu_only")
-# each form's counter in flash_attention_dt.form_launches: K5 is
-# staticaug, K1' the running-max forms and the probes; "K1 static" is
-# staticmax in the forms kernels (D > 160, fp32, or bf16 rows that are not
-# 16-byte aligned), while K1 on the wgmma + TMA kernel counts in .launches
-# (see counter_for)
+# each form's counter on the wgmma + TMA pipeline: K1 (staticmax) in
+# flash_attention_dt.launches, the others in .form_launches; K5 is
+# staticaug, K1' the running-max forms and the probes
 FORM_KERNEL = {"exp": "K1' exp", "exp2": "K1' exp2",
-               "fastexp2": "K1' fastexp2", "staticmax": "K1 static",
+               "fastexp2": "K1' fastexp2", "staticmax": "K1",
                "staticaug": "K5", "noexp": "K1' noexp",
                "mxu_only": "K1' mxu_only"}
+# each form's counter off that pipeline, in .form_launches: " template"
+# means off the wgmma + TMA pipeline, so one counter takes the launches of
+# two kernels, the mma.sync template (bf16: D > 160 or rows that are not
+# 16-byte aligned) and the SIMT kernel (fp32); so do "K1 static" and "K4
+# template"
+TEMPLATE_KERNEL = {f: "K1 static" if f == "staticmax" else f"{n} template"
+                   for f, n in FORM_KERNEL.items()}
 # fp32 outputs against the plain version: sums in another order
 FP32_TOL = 1e-4
 # the mma.sync and SIMT kernels take head dims up to 256, the wgmma + TMA
 # kernel up to 160 (every SD-1.5 site: 40, 80, 160)
 MAX_D = 256
 SM90_MAX_D = 160
-# the CUDA kernels by source (csrc/<name>.cu)
-SM90, TEMPLATE, SIMT = ("flash_attention_sm90", "flash_attention_runmax",
-                        "flash_attention_f32")
+# the CUDA kernels by source (csrc/<name>.cu): the wgmma + TMA pipeline's
+# K1/K4 instances (and exp, K4's) and its other forms, the mma.sync
+# template, the fp32 SIMT kernel
+SM90, SM90_FORMS, TEMPLATE, SIMT = (
+    "flash_attention_sm90", "flash_attention_sm90_forms",
+    "flash_attention_runmax", "flash_attention_f32")
 # csrc/temporal_attention.cu takes up to 32 frames and head dims up to 160
 TEMPORAL_MAX_F = 32
 TEMPORAL_MAX_D = 160
@@ -269,27 +280,37 @@ def kernel_for(exp_impl, dtype: torch.dtype, D: int, aligned: bool) -> str:
     """The routing rule: which CUDA kernel computes flash attention in form
     ``exp_impl`` (one of :data:`EXP_IMPLS`; None for K4, ``flash_attention``)
     on ``dtype`` operands of head dim D, ``aligned`` when every q/k/v row
-    and base is 16-byte aligned. -> :data:`SM90` for K1 (staticmax) and K4
-    in bf16 at D % 8 == 0, 8 <= D <= 160 on aligned rows; else
+    and base is 16-byte aligned. -> in bf16 at D % 8 == 0, 8 <= D <= 160 on
+    aligned rows the wgmma + TMA pipeline: :data:`SM90` for K1
+    (staticmax), K4 and exp, :data:`SM90_FORMS` for every other form; else
     :data:`TEMPLATE` (bf16) or :data:`SIMT` (fp32). Never the plain
     version: that runs on CPU tensors only."""
     if dtype == torch.float32:
         return SIMT
-    if (exp_impl in (None, "staticmax") and aligned and D % 8 == 0
-            and 8 <= D <= SM90_MAX_D):
-        return SM90
+    if aligned and D % 8 == 0 and 8 <= D <= SM90_MAX_D:
+        return SM90 if exp_impl in (None, "staticmax", "exp") else SM90_FORMS
     return TEMPLATE
 
 
 def counter_for(exp_impl, dtype: torch.dtype, D: int, aligned: bool) -> str:
     """The counter that takes the launch :func:`kernel_for` routes (same
-    arguments): "K1" (``flash_attention_dt.launches``) or "K4"
-    (``flash_attention.launches``) on the wgmma + TMA kernel; else the
-    form's :data:`FORM_KERNEL` name (``flash_attention_dt.form_launches``)
-    or "K4 template" (``flash_attention.template_launches``)."""
-    if kernel_for(exp_impl, dtype, D, aligned) == SM90:
-        return "K4" if exp_impl is None else "K1"
-    return "K4 template" if exp_impl is None else FORM_KERNEL[exp_impl]
+    arguments). On the wgmma + TMA pipeline: "K4"
+    (``flash_attention.launches``), "K1" (``flash_attention_dt.launches``)
+    or the form's :data:`FORM_KERNEL` name; off it "K4 template"
+    (``flash_attention.template_launches``) or the form's
+    :data:`TEMPLATE_KERNEL` name ("K1 static", "K5 template", "K1' exp2
+    template", ...), which count the mma.sync template's launches (bf16)
+    and the SIMT kernel's (fp32) alike. Form names count in
+    ``flash_attention_dt.form_launches``."""
+    return _counter(exp_impl, kernel_for(exp_impl, dtype, D, aligned))
+
+
+def _counter(exp_impl, kernel: str) -> str:
+    """:func:`counter_for`'s name for a launch of form ``exp_impl`` on
+    ``kernel``, :func:`kernel_for`'s choice."""
+    if kernel in (SM90, SM90_FORMS):
+        return "K4" if exp_impl is None else FORM_KERNEL[exp_impl]
+    return "K4 template" if exp_impl is None else TEMPLATE_KERNEL[exp_impl]
 
 
 def launch_counts() -> dict:
@@ -299,16 +320,26 @@ def launch_counts() -> dict:
             "K4 template": flash_attention.template_launches}
 
 
-def _launch_sm90(q, k, v, *, mult: float, static: bool, what: str):
-    """One launch of ``csrc/flash_attention_sm90.cu``: staticmax (K1,
-    ``mult`` folded into q) or the running max (K4, ``mult`` on the fp32
-    scores)."""
+def _launch_sm90(q, k, v, *, scale: float, exp_impl, kernel: str,
+                 period: int, what: str):
+    """One launch of the wgmma + TMA pipeline in form ``exp_impl`` (None:
+    K4) on ``kernel``, :func:`kernel_for`'s choice, mult = scale *
+    log2(e): :data:`SM90` for K1 (staticmax, mult folded into q), K4 and
+    exp (the running max, mult on the fp32 scores); :data:`SM90_FORMS` for
+    the other forms (mult folded into q; ``period`` is fastexp2's and
+    noexp's statistics period in keys, a multiple of 128)."""
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
     B, Sq, H, D = q.shape
-    err = _lib.lib().vdx_flash_attention_sm90(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        B, Sq, k.shape[1], H, D, *_strides(q, k, v, o), float(mult),
-        int(static), _lib.stream_ptr(q.device))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            B, Sq, k.shape[1], H, D, *_strides(q, k, v, o),
+            float(scale * LOG2E))
+    if kernel == SM90:
+        err = _lib.lib().vdx_flash_attention_sm90(
+            *args, int(exp_impl == "staticmax"), _lib.stream_ptr(q.device))
+    else:
+        err = _lib.lib().vdx_flash_attention_sm90_forms(
+            *args, EXP_IMPLS.index(exp_impl), int(period),
+            _lib.stream_ptr(q.device))
     _lib.check(err, what)
     return o
 
@@ -350,10 +381,10 @@ def flash_attention_dt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     CUDA: one launch on the current stream, no synchronise, D <= 256 (the
     Hopper kernels' limit), on the kernel :func:`kernel_for` names, counted
-    where :func:`counter_for` says: staticmax on the wgmma + TMA kernel (K1)
-    in ``launches``; every other launch in ``form_launches`` under
-    :data:`FORM_KERNEL`'s name of its form (staticmax in the forms kernels
-    as "K1 static"). CPU: the plain version.
+    where :func:`counter_for` says: staticmax on the wgmma + TMA pipeline
+    (K1) in ``launches``; every other launch in ``form_launches``, under
+    :data:`FORM_KERNEL`'s name of its form on that pipeline and
+    :data:`TEMPLATE_KERNEL`'s off it. CPU: the plain version.
     """
     if exp_impl not in EXP_IMPLS:
         raise ValueError(f"unknown exp_impl {exp_impl!r}; vdx takes {EXP_IMPLS}")
@@ -369,20 +400,26 @@ def flash_attention_dt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not 8 <= D <= MAX_D:
         raise ValueError(f"{what}: the Hopper kernels take head dims 8..{MAX_D} "
                          f"in steps of 8 (vdx has no upper bound), got {D}")
-    counter = counter_for(exp_impl, q.dtype, D, _rows_16b_aligned(q, k, v))
-    if counter == "K1":
-        o = _launch_sm90(q, k, v, mult=scale * LOG2E, static=True,
-                         what="K1 flash_attention_dt staticmax")
-        flash_attention_dt.launches += 1
+    kernel = kernel_for(exp_impl, q.dtype, D, _rows_16b_aligned(q, k, v))
+    counter = _counter(exp_impl, kernel)
+    if kernel in (SM90, SM90_FORMS):
+        o = _launch_sm90(q, k, v, scale=scale, exp_impl=exp_impl,
+                         kernel=kernel, period=period,
+                         what=f"{counter} {what}")
     else:
         o = _launch_forms(q, k, v, scale=scale, exp_impl=exp_impl,
                           period=period)
+    if counter == "K1":
+        flash_attention_dt.launches += 1
+    else:
         flash_attention_dt.form_launches[counter] += 1
     return o
 
 
 flash_attention_dt.launches = 0
-flash_attention_dt.form_launches = {FORM_KERNEL[f]: 0 for f in EXP_IMPLS}
+flash_attention_dt.form_launches = {
+    name: 0 for name in (*FORM_KERNEL.values(), *TEMPLATE_KERNEL.values())
+    if name != "K1"}
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -404,9 +441,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     D = q.shape[-1]
     if not 1 <= D <= MAX_D:
         raise ValueError(f"K4 takes head dims 1..{MAX_D}, got {D}")
-    if counter_for(None, q.dtype, D, _rows_16b_aligned(q, k, v)) == "K4":
-        o = _launch_sm90(q, k, v, mult=scale * LOG2E, static=False,
-                         what="K4 flash_attention")
+    kernel = kernel_for(None, q.dtype, D, _rows_16b_aligned(q, k, v))
+    if kernel == SM90:
+        o = _launch_sm90(q, k, v, scale=scale, exp_impl=None, kernel=kernel,
+                         period=0, what="K4 flash_attention")
         flash_attention.launches += 1
     else:
         o = _launch_forms(q, k, v, scale=scale, exp_impl="exp", period=128)
