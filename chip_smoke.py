@@ -42,24 +42,26 @@ Phases, one flushed line each with its seconds:
      through their kernels' functions), then each against its plain
      version, timed beside its bound, SDPA on the same views and the
      eager xla_bf16p path that impl="auto" runs at those sites today
+     (bf16 K6-K8 on the tensor-core kernel, K9 on the SIMT kernel)
  13. the attention forms: flash_attention_dt in vdx's exp_impl forms
-     exp, exp2, fastexp2, noexp, mxu_only (K1') and staticaug (K5) at
-     [32,4096,8,40] and [32,576,8,160], all on the wgmma + TMA pipeline,
-     and staticmax (K1) at both and on the template at [32,576,8,256]
-     ("K1 static"), each driven through the chained loop of the
-     attention micro-benchmark (scripts/bench_attn_torch.py, K = 16) with
-     the counters reset, then against its plain version, timed beside its
+     exp, exp2, fastexp2, noexp, mxu_only (K1'), staticaug (K5) and
+     staticmax (K1) at [32,4096,8,40], [32,576,8,160] and [32,576,8,256],
+     and K4 (flash_attention) at [32,576,8,256], all on the wgmma + TMA
+     pipeline, each driven through the chained loop of the attention
+     micro-benchmark (scripts/bench_attn_torch.py, K = 16) with the
+     counters reset, then against its plain version, timed beside its
      bound and a library call (SDPA; two matmuls for mxu_only; none for
      noexp)
 Phase 3 also checks the wgmma + TMA pipeline at its edges (Sq and Skv off
 the tiles, Skv under one tile, q/k/v as views into one fused projection,
 rows whose every scaled logit is below -46; every form at each head-dim
-instance, fastexp2 and noexp over several periods, noexp with Skv not a
-multiple of the period), the template at its routes (K4 at D = 20 and
-256; every form at D = 256 and on rows 8 bytes past 16-byte alignment),
-K1/K4 with fp32 operands, and every exp_impl form in fp32 at ragged key
-counts; every counter of kernels.flash_attention.launch_counts() has to
-take a launch there. Bounds: the largest of the operations over the peak
+instance, D = 168, 200 and 256 on the DP = 256 one, fastexp2 and noexp
+over several periods, noexp with Skv not a multiple of the period), the
+template at its routes (K4 at D = 20 and 252; every form on rows 8 bytes
+past 16-byte alignment), K1/K4 with fp32 operands, every exp_impl form in
+fp32 at ragged key counts, and K6-K9 at D = 160 with 16, 24 and 32 frames,
+on strided and unaligned views and in fp32; every counter of
+kernels.flash_attention.launch_counts() has to take a launch there. Bounds: the largest of the operations over the peak
 rate, the bytes over the memory rate and, for attention, the exp2 calls
 over 16 a clock per SM at clocks.max.sm, and for fastexp2 the cubic's
 instructions (counted from the SASS by scripts/sass_forms.py) at their
@@ -331,6 +333,7 @@ def check_kernels(dev):
     bad += check_sm90_edges(dev)
     bad += check_attention_edges(dev)
     edges = {n: c - before[n] for n, c in KA.launch_counts().items()}
+    bad += check_temporal_edges(dev)
     log(f"[kernels] edge launches by counter: {edges}")
     if bad:
         raise SystemExit(f"kernels disagree with their plain versions: {bad}")
@@ -344,8 +347,8 @@ def check_sm90_edges(dev):
     """The wgmma + TMA kernel (csrc/flash_attention_sm90.cu) in both forms
     at its edges, each launch counted on it (K1 in
     flash_attention_dt.launches, K4 in flash_attention.launches): Sq and
-    Skv off the 128-query and 128-key tiles at each instance's head dim,
-    Skv under one tile, q/k/v as views into one fused [B, S, 3, H, D]
+    Skv off the query and key tiles at each instance's head dim (D = 168,
+    200 and 256 on the DP = 256 instance), Skv under one tile, q/k/v as views into one fused [B, S, 3, H, D]
     projection, staticmax at D = 160, and at D = 40 two rows whose every
     scaled logit is below -46 (about -95: p underflows to 0 and the row is
     zeros; about -53: p is subnormal, as in the plain version). K1 is
@@ -362,7 +365,12 @@ def check_sm90_edges(dev):
                  (2, 300, 333, 3, 40, False), (2, 300, 333, 3, 80, False),
                  (2, 300, 333, 3, 160, False), (1, 64, 70, 2, 40, False),
                  (1, 200, 100, 2, 160, False), (2, 640, 640, 4, 40, True),
-                 (2, 577, 577, 8, 80, True), (2, 600, 600, 2, 160, True))]
+                 (2, 577, 577, 8, 80, True), (2, 600, 600, 2, 160, True),
+                 # DP = 256 (one consumer warpgroup): D = 168, 200, 256,
+                 # Skv under one 64-key tile, fused-projection views
+                 (2, 300, 333, 3, 168, False), (2, 300, 333, 3, 200, False),
+                 (2, 300, 333, 3, 256, False), (1, 65, 50, 2, 256, False),
+                 (2, 600, 600, 2, 256, True))]
     cases.append(("K1 below -46", 2, 256, 300, 2, 40, False))
 
     def randn(*shape):
@@ -409,15 +417,16 @@ def check_sm90_edges(dev):
 
 
 def check_attention_edges(dev):
-    """K4 at shapes off the main path (D % 8 != 0, D = 256, a multi-tile
-    ragged Skv) in bf16, K1/K4 with fp32 operands, and every form of
-    flash_attention_dt: in bf16 on the wgmma + TMA pipeline at ragged Sq
-    and Skv at each head-dim instance (DP = 48, 80, 128, 160), fastexp2
-    and noexp over several periods with Skv a multiple of the period and
-    not, K5 on rows whose every scaled logit is below -46; on the
-    template (" template" counters, "K1 static") at D = 256 and on rows 8
-    bytes past 16-byte alignment at D = 40, 160 and 256; in fp32 (the
-    SIMT kernel) at a ragged Skv. Each against its plain version with
+    """K4 at shapes off the main path (D % 8 != 0 at 20 and 252, D = 256,
+    a multi-tile ragged Skv) in bf16, K1/K4 with fp32 operands, and every
+    form of flash_attention_dt: in bf16 on the wgmma + TMA pipeline at
+    ragged Sq and Skv at each head-dim instance (DP = 48, 80, 128, 160 and
+    256, the last at D = 168, 200 and 256), fastexp2 and noexp over
+    several periods with Skv a multiple of the period and not, K5 on rows
+    whose every scaled logit is below -46 (D = 40 and 256); on the
+    template (" template" counters, "K1 static") on rows 8 bytes past
+    16-byte alignment at D = 40, 160 and 256; in fp32 (the SIMT kernel) at
+    a ragged Skv. Each against its plain version with
     KA.plain_err_tol, each launch counted once on the counter
     KA.counter_for names and on no other; -> the names of the cases that
     fail."""
@@ -449,6 +458,7 @@ def check_attention_edges(dev):
 
     cases = (  # (kernel, dtype, B, Sq, Skv, H, D)
         ("K4", torch.bfloat16, 2, 300, 300, 2, 20),
+        ("K4", torch.bfloat16, 2, 300, 700, 2, 252),
         ("K4", torch.bfloat16, 2, 300, 700, 2, 256),
         ("K4", torch.bfloat16, 2, 1000, 1000, 2, 160),
         ("K1", torch.float32, 2, 1024, 1024, 2, 40),
@@ -479,29 +489,30 @@ def check_attention_edges(dev):
             bad.append(name)
     bf16, fp32 = torch.bfloat16, torch.float32
     # (form, dtype, B, Sq, Skv, H, D, block_k, aligned rows, below -46)
-    # the wgmma + TMA pipeline: ragged Sq and Skv at each instance
+    # the wgmma + TMA pipeline: ragged Sq and Skv at each instance (D =
+    # 168, 200 and 256 on DP = 256)
     form_cases = [(form, bf16, 2, 300, Skv, 3, D, 1024, True, False)
                   for form in KA.EXP_IMPLS
-                  for Skv, D in ((300, 40), (333, 80), (333, 128), (700, 160))]
+                  for Skv, D in ((300, 40), (333, 80), (333, 128), (700, 160),
+                                 (333, 168), (700, 200), (700, 256))]
     # fastexp2 and noexp over several periods of 256 keys at each
     # instance: Skv = 1100, not a multiple of the period (noexp runs to
     # 1280, its padded keys entering l), and Skv = 1024, a multiple (no
-    # padded keys; at D = 256 on the template)
+    # padded keys)
     form_cases += [(form, dtype, 2, Sq, Skv, 2, D, 256, True, False)
                    for form in ("fastexp2", "noexp")
                    for dtype, Sq, Skv, D in (
-                       *((bf16, 200, 1100, D) for D in (40, 80, 128, 160)),
+                       *((bf16, 200, 1100, D) for D in (40, 80, 128, 160, 256)),
                        *((dtype, 300, 1024, D) for dtype in (bf16, fp32)
                          for D in (40, 160, 256)))]
     form_cases += [("noexp", bf16, 2, 300, 300, 2, 40, 128, True, False),
-                   ("staticaug", bf16, 2, 256, 300, 2, 40, 1024, True, True)]
-    # the template: every form past the pipeline's D <= 160 and on rows
-    # it does not take
-    form_cases += [(form, bf16, 2, 300, Skv, 2, D, 1024, aligned, False)
+                   ("noexp", bf16, 2, 300, 1100, 2, 256, 1024, True, False),
+                   ("staticaug", bf16, 2, 256, 300, 2, 40, 1024, True, True),
+                   ("staticaug", bf16, 2, 256, 300, 2, 256, 1024, True, True)]
+    # the template: every form on rows the pipeline does not take
+    form_cases += [(form, bf16, 2, 300, Skv, 2, D, 1024, False, False)
                    for form in KA.EXP_IMPLS
-                   for Skv, D, aligned in ((700, 256, True), (333, 40, False),
-                                           (700, 160, False), (333, 256, False))]
-    form_cases += [("noexp", bf16, 2, 300, 1100, 2, 256, 1024, True, False)]
+                   for Skv, D in ((333, 40), (700, 160), (333, 256))]
     # fp32: the SIMT kernel
     form_cases += [(form, fp32, 2, 300, Skv, 2, D, 1024, True, False)
                    for form in KA.EXP_IMPLS for Skv, D in ((300, 40), (700, 160))]
@@ -528,6 +539,73 @@ def check_attention_edges(dev):
         log(f"[kernels] edge {name}: max_abs_err={err:.3e} tol={tol:.3e} "
             f"max|plain|={mag:.3e} (KA.plain_err_tol){extra}")
         if not err <= tol:
+            bad.append(name)
+    return bad
+
+
+def check_temporal_edges(dev):
+    """K6-K9 (csrc/temporal_attention.cu) at their edges: bf16 K6-K8 on
+    the tensor-core kernel and K9 on the SIMT kernel at D = 160 with 16, 24
+    and 32 frames (one and two m16 row tiles), at the site head dims 40
+    and 80, on q/k/v views into one fused [P, F, 3, H, D] projection and on
+    rows 8 bytes past 16-byte alignment (element staging), K9 at
+    D % 8 != 0, and fp32 K6, K7, K9 (the SIMT kernel). Each against its
+    plain version (one bf16 ulp at max|plain|; fp32 FP32_TOL), each launch
+    counted once on its own wrapper. -> the names of the cases that fail."""
+    import torch
+
+    from vdx_torch.kernels import flash_attention as KA
+    from vdx_torch.kernels import temporal_attention_cp as KT
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    bf16, fp32 = torch.bfloat16, torch.float32
+    kernels = {  # name -> (wrapper, plain, mode)
+        "K6": (KA.flash_attention_blockdiag, KA.flash_attention_blockdiag_plain,
+               "blockdiag"),
+        "K7": (KA.flash_attention_blockdiag_tc,
+               KA.flash_attention_blockdiag_tc_plain, "tc"),
+        "K8": (KA.flash_attention_blockdiag_tc2,
+               KA.flash_attention_blockdiag_tc_plain, "tc"),
+        "K9": (KT.temporal_attention_cp, KT.temporal_attention_cp_plain, "cp")}
+    cases = [(kname, bf16, 300, F, 8, 160, "contiguous")
+             for kname in kernels for F in (16, 24, 32)]
+    cases += [(kname, bf16, 500, 16, 8, D, "contiguous")
+              for kname in ("K6", "K9") for D in (40, 80)]
+    cases += [(kname, bf16, 200, 16, 8, 160, layout)
+              for kname in ("K6", "K7", "K9")
+              for layout in ("fused-projection views",
+                             "rows 8 bytes past 16-byte alignment")]
+    cases += [("K9", bf16, 64, 16, 2, 20, "contiguous")]
+    cases += [(kname, fp32, 200, 16, 8, 160, "contiguous")
+              for kname in ("K6", "K7", "K9")]
+    bad = []
+    for kname, dtype, P, F, H, D, layout in cases:
+        fn, plain, mode = kernels[kname]
+        if layout.startswith("fused"):
+            q, k, v = torch.randn((P, F, 3, H, D), generator=gen,
+                                  device=dev).to(dtype).unbind(dim=2)
+        else:
+            n = P * F * H * D
+            # 8 bytes in elements
+            shift = 64 // torch.finfo(dtype).bits if layout.startswith("rows") else 0
+            flat = torch.randn(3 * n + shift, generator=gen, device=dev).to(dtype)
+            q, k, v = (flat[shift + i * n:shift + (i + 1) * n].view(P, F, H, D)
+                       for i in range(3))
+        scale = D ** -0.5
+        kw = ({"block_p": 1} if kname == "K9" else
+              {"block": math.lcm(128, F), **({"heads": H} if kname != "K6" else {})})
+        n0 = fn.launches
+        out = fn(q, k, v, scale=scale, **kw)
+        torch.cuda.synchronize()
+        launched = fn.launches - n0
+        ref = plain(q, k, v, scale=scale)
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = bf16_tol(ref) if dtype == bf16 else FP32_TOL
+        name = (f"{kname} {KA.temporal_kernel_for(mode, dtype)} "
+                f"{str(dtype)[6:]} [{P},{F},{H},{D}] {layout}")
+        log(f"[kernels] edge {name}: max_abs_err={err:.3e} tol={tol:.3e} "
+            f"launches {launched}")
+        if not (err <= tol and launched == 1):
             bad.append(name)
     return bad
 
@@ -792,6 +870,10 @@ TEMPORAL = (  # kernel, entry point, the TPU kernel it replaces
 )
 
 
+# each temporal kernel's mode of csrc/temporal_attention.cu
+TEMPORAL_MODE = {"K6": "blockdiag", "K7": "tc", "K8": "tc", "K9": "cp"}
+
+
 def temporal_entries(P: int, H: int, D: int) -> dict:
     """kernel -> (its entry point, its plain version), each f(q, k, v), at
     a [P, F, H, D] site; K9 with block_p = gcd(P, 128), vdx's 128 except
@@ -828,6 +910,7 @@ def check_temporal(dev, sites: dict, calls: dict):
     import torch
     import torch.nn.functional as F
 
+    from vdx_torch.kernels import flash_attention as KA
     from vdx_torch.ops.attention import dot_product_attention
 
     keys = sorted(sites, key=lambda key: (key[0], -key[1]))  # 512 first, L0 first
@@ -887,9 +970,10 @@ def check_temporal(dev, sites: dict, calls: dict):
                 b_ms, b_by = bound(
                     4.0 * P * H * F_ * F_ * D, 4 * q.numel() * q.element_size(),
                     peak, float(P * H * F_ * F_))  # one exponential a score
+                route = KA.temporal_kernel_for(TEMPORAL_MODE[kname], q.dtype)
                 rows.append(dict(
                     name=f"{kname} {entry.rsplit(' ', 1)[-1]} "
-                         f"[{P},{F_},{H},{D}] ({where})",
+                         f"[{P},{F_},{H},{D}] ({where}; {route})",
                     kernel=kname, path="temporal", stage="sites", route="cuda",
                     source="vdx_torch/csrc/temporal_attention.cu",
                     replaces=replaces, max_abs_err=err.max().item(),
@@ -925,22 +1009,22 @@ def check_temporal(dev, sites: dict, calls: dict):
 
 
 # phase 13: the attention micro-benchmark's shapes, [32, 4096, 8, 40] (the
-# 512 level-0 self-attention, scripts/bench_attention.py's) and the 768
-# level-2 [32, 576, 8, 160], every form at both, all on the wgmma + TMA
-# pipeline (staticmax: K1; the others K1' and K5)
-FORM_SHAPES = ((32, 4096, 8, 40), (32, 576, 8, 160))
+# 512 level-0 self-attention, scripts/bench_attention.py's), the 768
+# level-2 [32, 576, 8, 160] and the same length at D = 256 (the pipeline's
+# one-consumer-warpgroup instance; no SD-1.5 site), every form at each,
+# all on the wgmma + TMA pipeline (staticmax: K1; the others K1' and K5),
+# and K4 (form None, the bench's k4 spec) at D = 256
+FORM_SHAPES = ((32, 4096, 8, 40), (32, 576, 8, 160), (32, 576, 8, 256))
 FORM_ROWS = [(form, shape) for shape in FORM_SHAPES
              for form in ("exp", "exp2", "fastexp2", "staticaug", "noexp",
                           "mxu_only", "staticmax")]
-# bf16 staticmax past the wgmma + TMA kernel's D <= 160: the template's
-# static mode ("K1 static"), at the level-2 length
-FORM_ROWS.append(("staticmax", (32, 576, 8, 256)))
+FORM_ROWS.append((None, (32, 576, 8, 256)))
 # exp2 calls per score in each form (fastexp2 and noexp: none on the
 # special-function unit; mxu_only: no softmax); fastexp2's cubic takes
 # the FMA and integer pipes instead (bound term "alu", its SM clocks a
 # score counted from the SASS: scripts/sass_forms.py)
 FORM_EXPS = {"exp": 1, "exp2": 1, "fastexp2": 0, "staticmax": 1,
-             "staticaug": 1, "noexp": 0, "mxu_only": 0}
+             "staticaug": 1, "noexp": 0, "mxu_only": 0, None: 1}
 BENCH_ITERS = 16  # vdx's K in scripts/bench_attention.py
 
 
@@ -956,11 +1040,12 @@ def load_script(name: str):
 
 def check_forms(dev):
     """Phase 13. Each row of FORM_ROWS: the micro-benchmark's chained loop
-    (spec dt:1024:1024:<form>, K = 16) on fresh seeded bf16 inputs with
-    the counters reset, the run whose counts the kernels line reports;
-    then flash_attention_dt in that form against its plain version (same
-    block_k) on the first two batch entries, and the kernel, plain and
-    library times beside the bound. -> (rows, {stage: launches})"""
+    (spec dt:1024:1024:<form>, k4 for K4; K = 16) on fresh seeded bf16
+    inputs with the counters reset, the run whose counts the kernels line
+    reports; then flash_attention_dt in that form (K4: flash_attention)
+    against its plain version (same block_k) on the first two batch
+    entries, and the kernel, plain and library times beside the bound.
+    -> (rows, {stage: launches})"""
     import torch
 
     from vdx_torch.kernels import flash_attention as KA
@@ -981,22 +1066,35 @@ def check_forms(dev):
         kname = KA.counter_for(form, torch.bfloat16, D, True)
         scale = D ** -0.5
         q, k, v = bench.fresh((B, S, H, D), S, 100 + i, dev, torch.bfloat16)
-        fn = bench.make_fn(f"dt:1024:1024:{form}", scale)
+        spec = "k4" if form is None else f"dt:1024:1024:{form}"
+        fn = bench.make_fn(spec, scale)
         torch.cuda.synchronize()
         reset_counters()
         looped = bench.chain(fn, q, k, v, BENCH_ITERS)
         launches = read_counters()
         torch.cuda.synchronize()
-        stage = f"{form} [{B},{S},{H},{D}]"
+        stage = f"{form or 'K4'} [{B},{S},{H},{D}]"
         runs[stage] = launches
         others = {n: c for n, c in launches.items() if n != kname and c}
         if launches[kname] != BENCH_ITERS or others:
             raise SystemExit(f"forms: the loop of {stage} launched {launches}, "
                              f"expected {kname} {BENCH_ITERS} times, no other")
-        kw = dict(scale=scale, block_k=1024, exp_impl=form)
-        out = KA.flash_attention_dt(q, k, v, **kw)
-        err, mean_err, tol, mag = KA.plain_err_tol(out[:2], q[:2], k[:2],
-                                                   v[:2], **kw)
+        if form is None:  # K4: one bf16 ulp at max|plain|
+            kw = dict(scale=scale)
+            call, plain = KA.flash_attention, KA.flash_attention_plain
+            out = call(q, k, v, **kw)
+            ref = plain(q[:2], k[:2], v[:2], **kw)
+            e = (out[:2].float() - ref.float()).abs()
+            err, mean_err = e.max().item(), e.mean().item()
+            tol, mag = bf16_tol(ref), ref.float().abs().max().item()
+            del ref, e
+        else:
+            kw = dict(scale=scale, block_k=1024, exp_impl=form)
+            call = KA.flash_attention_dt
+            plain = KA.flash_attention_dt_plain
+            out = call(q, k, v, **kw)
+            err, mean_err, tol, mag = KA.plain_err_tol(out[:2], q[:2], k[:2],
+                                                       v[:2], **kw)
         finite = bool(torch.isfinite(looped).all() and torch.isfinite(out).all())
         del looped
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -1013,9 +1111,9 @@ def check_forms(dev):
                 qt, kt, vt, scale=scale)
 
         def plain_slice():  # one two-entry slice, timed and scaled
-            KA.flash_attention_dt_plain(q[:2], k[:2], v[:2], **kw)
+            plain(q[:2], k[:2], v[:2], **kw)
 
-        ms = cuda_ms(lambda: KA.flash_attention_dt(q, k, v, **kw))
+        ms = cuda_ms(lambda: call(q, k, v, **kw))
         plain_ms = cuda_ms(plain_slice, reps=3, warmup=1) * (B // 2)
         lib_ms = cuda_ms(lib_fn, reps=5) if lib_fn else None
         scores = float(B * H * S * S)
@@ -1030,13 +1128,15 @@ def check_forms(dev):
         if form == "fastexp2":
             note += (f"; bound term alu: the cubic's {cubic} instructions a "
                      f"score from the SASS, {cubic_clocks:.5f} SM clocks")
+        entry = ("flash_attention" if form is None else
+                 f"flash_attention_dt exp_impl={form}")
         rows.append(dict(
-            name=f"{kname} flash_attention_dt exp_impl={form} "
-                 f"[{B},{S},{H},{D}] (attention micro-benchmark, "
-                 f"dt:1024:1024:{form})",
+            name=f"{kname} {entry} [{B},{S},{H},{D}] (attention "
+                 f"micro-benchmark, {spec})",
             kernel=kname, path="forms", stage=stage, route="cuda",
             source=f"vdx_torch/csrc/{KA.kernel_for(form, torch.bfloat16, D, True)}.cu",
             replaces=("vdx/kernels/flash_attention.py:393" if form == "staticaug"
+                      else "vdx/kernels/flash_attention.py:135" if form is None
                       else "vdx/kernels/flash_attention.py:204"),
             max_abs_err=err, mean_abs_err=mean_err, tol=tol, ms=ms,
             plain_ms=plain_ms, library_ms=lib_ms, library=library,

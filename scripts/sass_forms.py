@@ -21,15 +21,19 @@ schedulers of one a clock (128 thread-instructions a clock per SM), so
 the clocks are the largest of the per-class times and the issue time.
 
 Prints the two histograms at DP, their difference and the per-score
-counts, then the per-score counts at every other instance (80, 128, 160)
+counts, then the per-score counts at every other instance (80, 128, 160,
+256)
 and whether they are within 5% of DP's in SM clocks a score, with no
 other conversion or MUFU, so that the one count holds the bound at every
 head dim (exit 1 if not); ``chip_smoke.py`` calls :func:`cubic_per_score`
 for its fastexp2 bound.
-``--same-as LIB`` also says, for each K1 and K4 instance
-(``flash_sm90_static_kernel``, ``flash_sm90_runmax_kernel``), whether its
-SASS in this build is instruction for instruction that of another build
-of the library (another commit's ``vdx_torch/_build``).
+``--same-as LIB`` also says, for each instance of the pipeline
+(``flash_sm90_static_kernel``, ``flash_sm90_runmax_kernel`` and the
+forms' ``flash_sm90f_*_kernel``) that both builds have, whether its SASS
+in this build is instruction for instruction that of another build of
+the library (another commit's ``vdx_torch/_build``), and lists the
+instances that only this build has (exit 1 if one of the other build's
+is missing or differs).
 """
 
 from __future__ import annotations
@@ -54,11 +58,11 @@ _INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*
 _TEXT = re.compile(r"/\*[0-9a-f]{4,}\*/\s+([^;]*;)")
 # the head-dim instance whose SASS the bound counts, and every instance
 DP = 48
-INSTANCES = (48, 80, 128, 160)
+INSTANCES = (48, 80, 128, 160, 256)
 # how far another instance's SM clocks a score may lie from DP's for the
 # one count to hold its bound
 SAME_CLOCKS = 0.05
-_K1K4 = re.compile(r"(flash_sm90_(?:static|runmax)_kernelI\w*?EEE)")
+_PIPELINE = re.compile(r"(flash_sm90f?_\w+?_kernelI\w*?EEE)")
 
 
 def cuobjdump() -> str:
@@ -72,13 +76,14 @@ def sass(lib_path: str) -> str:
                           capture_output=True, text=True, check=True).stdout
 
 
-def k1k4_code(lib_path: str) -> dict:
-    """{K1/K4 instance: its SASS instructions, text without addresses}"""
+def pipeline_code(lib_path: str) -> dict:
+    """{instance of the wgmma + TMA pipeline: its SASS instructions, text
+    without addresses}"""
     out, current = {}, None
     for line in sass(lib_path).splitlines():
         m = _FUNC.search(line)
         if m:
-            k = _K1K4.search(m.group(1))
+            k = _PIPELINE.search(m.group(1))
             current = out.setdefault(k.group(1), []) if k else None
             continue
         m = _TEXT.search(line) if current is not None else None
@@ -156,8 +161,8 @@ def cubic_per_score(lib_path: str):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--same-as", metavar="LIB",
-                    help="another build of the library: compare the K1 "
-                         "and K4 instances' SASS with it")
+                    help="another build of the library: compare the "
+                         "pipeline instances' SASS with it")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
     from vdx_torch.kernels import _lib
@@ -186,16 +191,17 @@ def main() -> int:
               f"of DP={DP}'s: {'within' if same else 'NOT within'} "
               f"{SAME_CLOCKS:.0%}, no other conversion or MUFU)")
     if args.same_as:
-        ours, theirs = k1k4_code(str(path)), k1k4_code(args.same_as)
-        if not ours or set(ours) != set(theirs):
-            print(f"[sass] K1/K4 instances differ: {sorted(ours)} against "
-                  f"{sorted(theirs)}")
+        ours, theirs = pipeline_code(str(path)), pipeline_code(args.same_as)
+        missing = sorted(set(theirs) - set(ours))
+        if not ours or missing:
+            print(f"[sass] instances of {args.same_as} missing here: {missing}")
             return 1
-        for name in sorted(ours):
+        for name in sorted(theirs):
             print(f"[sass] {name}: {len(ours[name])} instructions, "
                   f"{'the same as' if ours[name] == theirs[name] else 'NOT the same as'} "
                   f"{args.same_as}")
-        if any(ours[n] != theirs[n] for n in ours):
+        print(f"[sass] only in this build: {sorted(set(ours) - set(theirs))}")
+        if any(ours[n] != theirs[n] for n in theirs):
             return 1
     return rc
 

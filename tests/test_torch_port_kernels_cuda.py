@@ -31,6 +31,7 @@ may nearly cancel, so in fp32 it is held to its recurrence in float64
 """
 
 import ast
+import math
 import pathlib
 from functools import partial
 
@@ -70,7 +71,8 @@ def _randn(shape, gen, device, dtype=torch.bfloat16, mean=0.0):
 
 
 # K1 (staticmax on the wgmma + TMA kernel) at each of its instances
-# (DP = 48, 80, 128, 160): ragged Sq and Skv tails, Skv under one key tile
+# (DP = 48, 80, 128, 160, 256): ragged Sq and Skv tails, Skv under one key
+# tile
 K1_CASES = [(2, 512, 512, 2, 40),
             (1, 300, 577, 3, 80),   # ragged Sq and Skv tails
             (2, 129, 1000, 2, 64),
@@ -78,17 +80,23 @@ K1_CASES = [(2, 512, 512, 2, 40),
             (1, 100, 200, 2, 120),
             (2, 300, 333, 3, 160),
             (1, 200, 50, 2, 128),   # Skv under one 64-key tile
-            (1, 64, 100, 2, 40)]    # Skv under one 128-key tile
-# K4 on the wgmma + TMA kernel (D % 8 == 0, D <= 160) and, past it, on the
-# mma.sync template ("K4 template")
+            (1, 64, 100, 2, 40),    # Skv under one 128-key tile
+            (1, 300, 333, 2, 168),  # DP = 256: one consumer warpgroup
+            (2, 129, 577, 2, 200),
+            (1, 200, 700, 2, 256),
+            (1, 65, 50, 1, 256)]    # Skv under one 64-key tile
+# K4 on the wgmma + TMA kernel (D % 8 == 0, D <= 256) and, at D % 8 != 0,
+# on the mma.sync template ("K4 template")
 K4_CASES = [(32, 576, 576, 8, 160),   # 768x768 level-2 self-attention
             (2, 1000, 1000, 2, 160),  # multi-tile Skv, ragged tail
             (2, 300, 333, 3, 40),     # DP = 48
             (1, 129, 70, 2, 80),      # DP = 80, Skv under one tile
             (1, 200, 333, 3, 128),    # DP = 128
             (1, 300, 300, 2, 20),     # template: D % 8 != 0, element loads
-            (1, 129, 700, 2, 256),    # template: D <= 256, 32-key tiles
-            (2, 65, 64, 1, 200)]      # template
+            (1, 129, 700, 2, 256),    # DP = 256
+            (2, 65, 64, 1, 200),      # DP = 256, Skv a single tile
+            (1, 300, 333, 3, 168),    # DP = 256
+            (1, 100, 300, 2, 250)]    # template: D % 8 != 0 past 160
 FP32_CASES = [("K1", 2, 300, 300, 2, 40),
               ("K1", 1, 100, 531, 2, 120),
               ("K4", 2, 300, 300, 2, 160),
@@ -105,8 +113,8 @@ K3_C2560_CASES = [(torch.bfloat16, 32, 1024),  # 1024x1024, bf16
 FORMS = ("exp", "exp2", "fastexp2", "staticmax", "staticaug", "noexp",
          "mxu_only")
 # (B, Sq, Skv, H, D, block_k) for every form in bf16 and fp32: ragged Sq
-# and Skv at each instance (bf16 at D <= 160 on the wgmma + TMA pipeline,
-# DP = 48, 80, 128, 160; D = 256 on the template, 32-key tiles), a period
+# and Skv at each instance (bf16 on the wgmma + TMA pipeline, DP = 48, 80,
+# 128, 160 and, for D = 168, 200, 256, DP = 256), a period
 # of 128 keys over a ragged tail, 640 keys (20 tiles of 32) at D = 256,
 # and Skv a multiple of the period (no padded keys, whose -1e30 scores
 # otherwise drive noexp's l to about -1e31 and its outputs to near zero):
@@ -120,9 +128,12 @@ FORM_CASES = [(2, 300, 300, 2, 40, 128),
               (1, 100, 512, 2, 40, 128),
               (1, 100, 1024, 2, 160, 256),
               (1, 64, 1024, 1, 256, 256),
-              (1, 200, 333, 2, 128, 256)]
+              (1, 200, 333, 2, 128, 256),
+              (1, 300, 333, 2, 168, 1024),
+              (1, 129, 1100, 2, 200, 256)]
 # (entry, P, F, H, D, dtype): the 512x512 level-0 motion site, F = 8 / 32
-# and D = 80 / 160, fp32 operands, K9 at F = 24
+# and D = 80 / 160, fp32 operands, K9 at F = 24; bf16 K6-K8 (the
+# tensor-core kernel) and K9 at D = 160 with 16, 24 and 32 frames
 TEMPORAL_CASES = [("k6", 8192, 16, 8, 40, torch.bfloat16),
                   ("k7", 512, 16, 8, 160, torch.bfloat16),
                   ("k8", 300, 8, 8, 80, torch.bfloat16),
@@ -131,7 +142,10 @@ TEMPORAL_CASES = [("k6", 8192, 16, 8, 40, torch.bfloat16),
                   ("k7", 100, 8, 3, 40, torch.float32),
                   ("k8", 128, 16, 8, 80, torch.float32),
                   ("k9", 96, 24, 2, 160, torch.float32),
-                  ("k9", 64, 16, 2, 20, torch.bfloat16)]  # D % 8 != 0
+                  ("k9", 64, 16, 2, 20, torch.bfloat16),  # D % 8 != 0
+                  *((kernel, 300, F, 8, 160, torch.bfloat16)
+                    for kernel in ("k6", "k7", "k8", "k9")
+                    for F in (16, 24, 32))]
 
 
 def _check_k1(cuda, B, Sq, Skv, H, D, below=False):
@@ -313,15 +327,24 @@ def _temporal(kernel):
 
 
 def _check_temporal(cuda, kernel, P, F, H, D, dtype):
-    """K6-K9 against their plain versions, on contiguous operands and on
-    q/k/v views into one fused [P, F, 3, H, D] projection."""
+    """K6-K9 against their plain versions, on contiguous operands, on q/k/v
+    views into one fused [P, F, 3, H, D] projection and, in bf16, on views
+    whose base is 8 bytes past a 16-byte boundary (element staging)."""
     fn, plain, kw = _temporal(kernel)
     if kernel in ("k7", "k8"):
         kw = dict(kw, heads=H)
+    if "block" in kw and kw["block"] % F:  # vdx's F | block (F = 24: 384)
+        kw = dict(kw, block=math.lcm(128, F))
     gen = torch.Generator(device=cuda).manual_seed(7)
     qkv = _randn((P, F, 3, H, D), gen, cuda, dtype)
     contiguous = tuple(t.contiguous() for t in qkv.unbind(dim=2))
-    for q, k, v in (contiguous, qkv.unbind(dim=2)):
+    sets = [contiguous, qkv.unbind(dim=2)]
+    if dtype == torch.bfloat16:
+        n = P * F * H * D
+        flat = _randn((3 * n + 4,), gen, cuda, dtype)[4:]
+        sets.append(tuple(flat[i * n:(i + 1) * n].view(P, F, H, D)
+                          for i in range(3)))
+    for q, k, v in sets:
         n0 = fn.launches
         got = fn(q, k, v, scale=D ** -0.5, **kw)
         torch.cuda.synchronize()

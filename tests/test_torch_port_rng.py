@@ -91,7 +91,7 @@ def test_flash_attention_routing_rule():
     """kernels.flash_attention.kernel_for and counter_for, which both
     wrappers call, for every case they see: each exp_impl form and K4
     (None), bf16 and fp32, head dims 8..256, rows 16-byte aligned or not.
-    Every bf16 form and K4 at D % 8 == 0, D <= 160 on aligned rows go to
+    Every bf16 form and K4 at D % 8 == 0, D <= 256 on aligned rows go to
     the wgmma + TMA pipeline (K1, K4 and exp to its K1/K4 source, the other
     K1' forms and K5 to its forms source); every other bf16 case to the
     mma.sync template; fp32 always to the SIMT kernel. Every route names a
@@ -108,7 +108,7 @@ def test_flash_attention_routing_rule():
                     seen[form, dtype, D, aligned] = KA.kernel_for(
                         form, dtype, D, aligned)
     on_sm90 = {(form, torch.bfloat16, D, True) for form in (*KA.EXP_IMPLS, None)
-               for D in (8, 40, 80, 128, 160)}
+               for D in (8, 40, 80, 128, 160, 168, 256)}
     for case, name in seen.items():
         want = (KA.SIMT if case[1] == torch.float32 else
                 KA.TEMPLATE if case not in on_sm90 else
@@ -137,7 +137,7 @@ def test_flash_attention_routing_rule():
         on_kernel.setdefault(counter, set()).add(on_sm90_route)
     assert all(len(v) == 1 for v in on_kernel.values()), on_kernel
     assert set(on_kernel) == set(counts), set(counts) ^ set(on_kernel)
-    for D, aligned in ((256, True), (40, False), (160, False)):
+    for D, aligned in ((256, False), (40, False), (160, False)):
         assert KA.counter_for("staticmax", torch.bfloat16, D, aligned) \
             == "K1 static"
         assert KA.counter_for("staticaug", torch.bfloat16, D, aligned) \
@@ -148,4 +148,5 @@ def test_flash_attention_routing_rule():
     assert KA.counter_for("exp", torch.bfloat16, 80, True) == "K1' exp"
     assert KA.counter_for("noexp", torch.float32, 40, True) \
         == "K1' noexp template"
-    assert KA.counter_for(None, torch.bfloat16, 256, True) == "K4 template"
+    assert KA.counter_for(None, torch.bfloat16, 256, True) == "K4"
+    assert KA.counter_for(None, torch.bfloat16, 256, False) == "K4 template"

@@ -9,9 +9,9 @@
 //                                         _flash_dt_kernel),
 //   _flash_dt_staticaug                   (K5; body _flash_dt_staticaug_kernel),
 // where the wgmma + TMA pipeline (flash_attention_sm90.cuh), which takes
-// every one of them in bf16 at D % 8 == 0, 8 <= D <= 160 on 16-byte
-// aligned rows, does not: head dims past 160 (up to 256), rows that are
-// not 16-byte aligned, and K4 at D % 8 != 0. The wrapper counts these
+// every one of them in bf16 at D % 8 == 0, 8 <= D <= 256 on 16-byte
+// aligned rows, does not: rows that are not 16-byte aligned, and K4 at
+// D % 8 != 0. The wrapper counts these
 // launches apart ("K1 static", "K4 template", "<form> template").
 //
 // Computes, for q, k, v of shape [B, S, H, D] (bf16, any strides whose

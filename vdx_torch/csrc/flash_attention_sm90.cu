@@ -12,7 +12,7 @@
 // and runs flash_attention_dt(..., exp_impl="exp") (K1' exp) as K4's
 // instance: the same function, counted apart by the wrapper.
 //
-// Instances: one per (form, DP): eight.
+// Instances: one per (form, DP), DP = 48, 80, 128, 160, 256: ten.
 
 #include "flash_attention_sm90.cuh"
 
@@ -20,7 +20,7 @@ namespace {
 
 // two kernel names, so a profile tells K1 from K4
 template <int DP, int SW, int BN>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(Cfg<DP, SW, BN>::THREADS, 1)
 flash_sm90_static_kernel(const __grid_constant__ CUtensorMap qmap,
                          const __grid_constant__ CUtensorMap kmap,
                          const __grid_constant__ CUtensorMap vmap,
@@ -32,7 +32,7 @@ flash_sm90_static_kernel(const __grid_constant__ CUtensorMap qmap,
 }
 
 template <int DP, int SW, int BN>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(Cfg<DP, SW, BN>::THREADS, 1)
 flash_sm90_runmax_kernel(const __grid_constant__ CUtensorMap qmap,
                          const __grid_constant__ CUtensorMap kmap,
                          const __grid_constant__ CUtensorMap vmap,

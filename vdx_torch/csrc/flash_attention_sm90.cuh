@@ -4,8 +4,9 @@
 // instantiate, each form under a kernel name of its own.
 //
 // Computes, for q, k, v of shape [B, S, H, D] (bf16, any strides whose
-// innermost is 1, rows and bases 16-byte aligned, D % 8 == 0, D <= 160),
-// non-causal attention, one 128-query tile per CTA, key tile by key tile.
+// innermost is 1, rows and bases 16-byte aligned, D % 8 == 0, D <= 256),
+// non-causal attention, one 128-query tile per CTA (64 past D = 160), key
+// tile by key tile.
 // r() rounds to bf16. fold: q' = r(float(q) * mult), mult = scale *
 // log2(e), so s = q'.k (fp32) is in the log2 domain.
 //   STATIC (K1, staticmax; fold): p = 2^(s - 80), l = sum p (from the
@@ -36,6 +37,8 @@
 //                 tile. noexp runs to vdx's padded key count, a multiple
 //                 of the period; keys from Skv score -1e30 and enter l
 //                 (their v rows are zero).
+// The DP = 256 instance writes r(acc * (1 / l)): the quotient one fp32
+// rounding apart, one division a row in place of one an element.
 // Keys past Skv are masked in the last tile (p = 0 in STATIC and AUG,
 // s = -inf in RUNMAX, -1e30 in PERIOD): TMA fills them with zeros, which
 // would score 0 and put 2^-80 per padded key into STATIC's l. In MXU their
@@ -50,13 +53,17 @@
 // noexp the tensor cores. At D = 80 and 160 the tensor cores:
 // 4 * B * H * Sq * Skv * D operations at 989 TFLOP/s (0.44 ms at
 // [32, 2304, 8, 80]; 0.055 ms at [32, 576, 8, 160], where the bytes,
-// 0.056 ms, weigh the same).
+// 0.056 ms, weigh the same). At D = 256 the bytes: 0.090 ms at
+// [32, 576, 8, 256] against 0.044 ms of tensor-core work.
 //
 // What the design does about it:
 //  * One CTA per (b, h, 128 queries): a producer warpgroup, of which one
 //    thread issues every TMA load, and two consumer warpgroups of 64 query
 //    rows each. setmaxnreg moves registers from the producer (24) to the
 //    consumers (240): 128 * 24 + 256 * 240 = 384 * 168, the launch's share.
+//    Past D = 160 (the DP = 256 instance) one consumer warpgroup of 64
+//    query rows: 256 threads, so the launch's share is 255 registers a
+//    thread and no setmaxnreg is needed (see "Registers").
 //  * K and V tiles (BN keys) stream through a ring of ST stages (2-4,
 //    what fits in 227 KB), each with a full and an empty mbarrier, so
 //    loads run ahead of the products. Q is loaded once.
@@ -73,7 +80,12 @@
 //    QK^T product of its next one, then hands the tensor cores to the
 //    other warpgroup while it runs its exponentials and row sums, so the
 //    tensor cores and the special-function units work at once (at D = 40
-//    the exponentials set the pace; PERF.md has how close it comes).
+//    the exponentials set the pace; PERF.md has how close it comes). The
+//    one warpgroup of the DP = 256 instance takes no turns: it issues the
+//    QK^T of tile j and the PV of tile j - 1 as two wgmma groups, runs tile
+//    j's exponentials and row sums as soon as the first completes, and
+//    rescales O and packs P once the second has (PERIOD forms: both
+//    products, then the softmax, as in a turn).
 //    PERIOD's max-only tiles take a turn of their own (their QK^T, with
 //    the PV of a K+V tile if one waits); they hold no V, so their stage
 //    is released as soon as their QK^T completes.
@@ -101,6 +113,9 @@
 //   D <= 80:  DP = 80,  32-byte atoms (5 boxes; 80 whole), BN = 128, 4
 //   D <= 128: DP = 128, 128-byte atoms (2 boxes), BN = 64, 4
 //   D <= 160: DP = 160, 64-byte atoms (5 boxes; 160 whole), BN = 64, 4
+//   D <= 256: DP = 256, 128-byte atoms (4 boxes; 168..248 pad to 256),
+//             BN = 64, 3 stages (Q 32 KB + 3 x 64 KB of K and V), one
+//             consumer warpgroup
 // 128-byte atoms (DP = 64) at D = 40 and 64-byte atoms (DP = 96) at
 // D = 80 were tried on an H100 and were not faster.
 // K-major descriptors (Q, K): rows SW bytes apart, stride byte offset
@@ -115,6 +130,9 @@
 // the consumer branch within the launch's 168 registers a thread, not the
 // 240 that setmaxnreg makes room for, so BN = 128 spilled at DP = 128 and
 // 160; BN = 64 there holds 32 + 16 + 80 without spills, and was faster.
+// At DP = 256 that is 32 + 16 + 128 = 176 before addresses and row
+// statistics, past 168: the instance has one consumer warpgroup, 256
+// threads a CTA, whose launch bounds give ptxas up to 255 registers.
 // PERIOD keeps only the current period's max (two floats), not one per
 // period. -Xptxas -v reports each instance's registers and spills.
 
@@ -130,8 +148,6 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int BQ = 128;          // queries per CTA: two consumer warpgroups
-constexpr int THREADS = 384;     // producer warpgroup + two consumers
 constexpr float STATIC_OFF = 80.0f;
 constexpr float L_FLOOR = 1.17549435e-38f;  // 2^-126
 constexpr int SMEM_MAX = 232448;            // 227 KB a block may use
@@ -140,12 +156,20 @@ constexpr int SMEM_MAX = 232448;            // 227 KB a block may use
 enum Form { RUNMAX = 0, STATIC = 1, AUG = 2, MXU = 3, FAST = 4, NOEXP = 5 };
 
 // Tile geometry of one instance: DP padded head dim, SW swizzle bytes, BN
-// keys per tile.
+// keys per tile; NC consumer warpgroups of 64 query rows each beside the
+// producer: two up to DP = 160, one past it (see "Registers" above).
 template <int DP_, int SW_, int BN_>
 struct Cfg {
   static constexpr int DP = DP_;
   static constexpr int SW = SW_;
   static constexpr int BN = BN_;
+  // DP <= 160: a producer warpgroup (its registers moved to the consumers
+  // by setmaxnreg), then two consumer warpgroups. DP = 256: one consumer
+  // warpgroup, then one producer warp, no setmaxnreg
+  static constexpr bool WIDE = DP > 160;
+  static constexpr int NC = WIDE ? 1 : 2;
+  static constexpr int BQ = 64 * NC;          // queries per CTA
+  static constexpr int THREADS = WIDE ? 160 : 384;
   static constexpr int BE = SW / 2;           // bf16 values per box row
   static constexpr int NB = DP / BE;          // boxes along D
   static constexpr int Q_BYTES = BQ * DP * 2;
@@ -230,6 +254,10 @@ __device__ __forceinline__ void wg_commit() {
 
 __device__ __forceinline__ void wg_wait0() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_wait1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
 }
 
 // keep the compiler from touching accumulators across an async product
@@ -413,6 +441,51 @@ __device__ __forceinline__ void wgmma_rs<160>(float (&d)[80],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+template <>
+__device__ __forceinline__ void wgmma_rs<256>(float (&d)[128],
+                                             const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 
 // ------------------------------------------------------------- kernel --
 
@@ -460,6 +533,7 @@ struct Consumer {
   uint32_t P[BN / 16][4];
   float O[NO];
   float m0, m1, l0, l1;  // rows g and g + 8: running max (RUNMAX), sums
+  float ra0, ra1;        // RUNMAX at DP = 256: the rescale of O, deferred
   float mx0, mx1;        // PERIOD: this lane's max over the period so far
 
   // S = Q_wg . K_tile^T
@@ -468,7 +542,7 @@ struct Consumer {
     for (int kk = 0; kk < DP / 16; ++kk) {
       const int bx = kk * 16 / C::BE;
       const int in = kk * 16 % C::BE;
-      const uint64_t da = make_desc(q_rows + bx * BQ * SW + in * 2, 16, 8 * SW, SW);
+      const uint64_t da = make_desc(q_rows + bx * C::BQ * SW + in * 2, 16, 8 * SW, SW);
       const uint64_t db = make_desc(k_tile + bx * BN * SW + in * 2, 16, 8 * SW, SW);
       wgmma_ss<BN>(S, da, db, kk > 0);
     }
@@ -518,8 +592,25 @@ struct Consumer {
     }
   }
 
+  // keep P's registers untouched until the PV product reading them is done
+  __device__ __forceinline__ void fence_p() {
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(P[kk][i]) :: "memory");
+  }
+
   // scores of key tile k0 -> p (packed into P), row statistics, O rescale
   __device__ __forceinline__ void softmax(int k0, int Skv, int t, float mult) {
+    probs(k0, Skv, t, mult);
+    rescale();
+    pack();
+  }
+
+  // scores of key tile k0 -> p in S, row statistics, and RUNMAX's rescale
+  // of O (DP = 256: deferred to rescale(), the tile's PV product still
+  // running; probs then reads neither O nor P)
+  __device__ __forceinline__ void probs(int k0, int Skv, int t, float mult) {
     const bool ragged = k0 + BN > Skv;
     if (FORM == STATIC || FORM == AUG) {
 #pragma unroll
@@ -572,12 +663,17 @@ struct Consumer {
       }
       l0 = a0 * l0 + ps0;
       l1 = a1 * l1 + ps1;
+      if constexpr (C::WIDE) {
+        ra0 = a0;
+        ra1 = a1;
+      } else {
 #pragma unroll
       for (int i = 0; i < NO / 4; ++i) {
         O[4 * i] *= a0;
         O[4 * i + 1] *= a0;
         O[4 * i + 2] *= a1;
         O[4 * i + 3] *= a1;
+      }
       }
     } else if (FORM == FAST || FORM == NOEXP) {
       // m and the rescale were set at the period's start; keys past Skv
@@ -599,6 +695,26 @@ struct Consumer {
     }
     // (MXU: p = s. Keys past Skv have zero k and v rows, as in vdx's zero
     // padding, so they add nothing.)
+  }
+
+  // RUNMAX at DP = 256: O *= a, the tile's rescale, once O is no
+  // product's accumulator; skipped when no row of the warp has a new max
+  // (a = 1 exactly)
+  __device__ __forceinline__ void rescale() {
+    if constexpr (FORM == RUNMAX && C::WIDE) {
+      if (!__any_sync(0xffffffffu, ra0 != 1.0f || ra1 != 1.0f)) return;
+#pragma unroll
+      for (int i = 0; i < NO / 4; ++i) {
+        O[4 * i] *= ra0;
+        O[4 * i + 1] *= ra0;
+        O[4 * i + 2] *= ra1;
+        O[4 * i + 3] *= ra1;
+      }
+    }
+  }
+
+  // p -> P (bf16 A fragments), once P is no product's operand; AUG: l
+  __device__ __forceinline__ void pack() {
     // accumulator n8 blocks 2kk, 2kk + 1 -> the A fragment of key slice kk
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk) {
@@ -646,29 +762,31 @@ __device__ __forceinline__ void flash_sm90_body(
   // noexp runs over vdx's padded key count, a multiple of the period
   const int kv_end = FORM == NOEXP ? (Skv + period - 1) / period * period : Skv;
   const int n_tiles = (kv_end + BN - 1) / BN;
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = blockIdx.x * C::BQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int wg = threadIdx.x >> 7;
+  // the thread that issues every TMA load
+  const int loader = C::WIDE ? 128 * C::NC : 0;
 
-  if (threadIdx.x == 0) {
+  if (threadIdx.x == loader) {
     mbar_init(qbar, 1);
     for (int s = 0; s < C::ST; ++s) {
       mbar_init(full0 + 8 * s, 1);
-      mbar_init(empty0 + 8 * s, 8);  // one arrival per consumer warp
+      mbar_init(empty0 + 8 * s, 4 * C::NC);  // one arrival per consumer warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  if (wg == 0) {
+  if (C::WIDE ? threadIdx.x >= loader : wg == 0) {
     // ---- producer: one thread keeps the K/V ring full ----
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
-    if (threadIdx.x == 0) {
+    if constexpr (!C::WIDE) asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == loader) {
       mbar_expect_tx(qbar, C::Q_BYTES);
 #pragma unroll
       for (int bx = 0; bx < C::NB; ++bx)
-        tma_load(sQ + bx * BQ * SW, &qmap, qbar, bx * C::BE, h, q0, b);
+        tma_load(sQ + bx * C::BQ * SW, &qmap, qbar, bx * C::BE, h, q0, b);
       if constexpr (PERIOD) {
         // per period: its K tiles alone (the max sweep), then K and V
         const int tpp = period / BN;  // key tiles a period
@@ -712,8 +830,8 @@ __device__ __forceinline__ void flash_sm90_body(
     }
   } else {
     // ---- consumers: warpgroup c owns query rows 64c .. 64c + 63 ----
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
-    const int c = wg - 1;
+    if constexpr (!C::WIDE) asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int c = C::WIDE ? wg : wg - 1;
     const int tid = threadIdx.x - 128 * wg;
     const int warp = tid >> 5;
     const int lane = tid & 31;
@@ -729,7 +847,7 @@ __device__ __forceinline__ void flash_sm90_body(
       // then make the generic-proxy writes visible to wgmma
 #pragma unroll
       for (int bx = 0; bx < C::NB; ++bx) {
-        uint4* p = reinterpret_cast<uint4*>(gbase + bx * BQ * SW + 64 * c * SW);
+        uint4* p = reinterpret_cast<uint4*>(gbase + bx * C::BQ * SW + 64 * c * SW);
         for (int i = tid; i < 64 * SW / 16; i += 128) {
           uint4 v = p[i];
           bf16* e = reinterpret_cast<bf16*>(&v);
@@ -751,7 +869,8 @@ __device__ __forceinline__ void flash_sm90_body(
     st.mx0 = st.mx1 = NEG;
     st.l0 = st.l1 = 0.0f;
 
-    if (c == 1) bar_arrive(1, 256);  // warpgroup 0 takes the first turn
+    // warpgroup 0 takes the first turn (one warpgroup takes no turns)
+    if (C::NC == 2 && c == 1) bar_arrive(1, 256);
 
     int sl;  // the stage of the last tile, whose PV is still to run
     if constexpr (PERIOD) {
@@ -768,12 +887,12 @@ __device__ __forceinline__ void flash_sm90_body(
           for (int tile = p0; tile < pe; ++tile, ++j) {
             const int s = j % C::ST;
             mbar_wait(full0 + 8 * s, (j / C::ST) & 1);
-            bar_sync(bar_me, 256);
+            if constexpr (C::NC == 2) bar_sync(bar_me, 256);
             wg_fence();
             st.issue_qk(q_rows, sKV + s * C::STAGE_BYTES);
             if (sp >= 0) st.issue_pv(sKV + sp * C::STAGE_BYTES + C::KV_BYTES);
             wg_commit();
-            bar_arrive(bar_other, 256);
+            if constexpr (C::NC == 2) bar_arrive(bar_other, 256);
             wg_wait0();
             fence_regs(st.S);
             if (sp >= 0) {
@@ -793,6 +912,37 @@ __device__ __forceinline__ void flash_sm90_body(
         }
       }
       sl = sp;
+    } else if constexpr (C::NC == 1) {
+      // one warpgroup: the PV product of tile j - 1 runs on the tensor
+      // cores while the exponentials of tile j run; O's rescale and the
+      // packing of P wait for it
+      mbar_wait(full0, 0);
+      wg_fence();
+      st.issue_qk(q_rows, sKV);
+      wg_commit();
+      wg_wait0();
+      fence_regs(st.S);
+      st.softmax(0, Skv, t, smult);
+      for (int j = 1; j < n_tiles; ++j) {
+        const int s = j % C::ST;
+        const int sp = (j - 1) % C::ST;
+        mbar_wait(full0 + 8 * s, (j / C::ST) & 1);
+        wg_fence();
+        st.issue_qk(q_rows, sKV + s * C::STAGE_BYTES);
+        wg_commit();
+        st.issue_pv(sKV + sp * C::STAGE_BYTES + C::KV_BYTES);
+        wg_commit();
+        wg_wait1();  // the QK^T product, committed first, is done
+        fence_regs(st.S);
+        st.probs(j * BN, Skv, t, smult);
+        wg_wait0();
+        fence_regs(st.O);
+        st.fence_p();
+        if (lane == 0) mbar_arrive(empty0 + 8 * sp);
+        st.rescale();
+        st.pack();
+      }
+      sl = (n_tiles - 1) % C::ST;
     } else {
       // tile 0: QK^T alone
       mbar_wait(full0, 0);
@@ -825,14 +975,15 @@ __device__ __forceinline__ void flash_sm90_body(
     }
 
     // the last tile's PV
-    bar_sync(bar_me, 256);
+    if constexpr (C::NC == 2) bar_sync(bar_me, 256);
     wg_fence();
     st.issue_pv(sKV + sl * C::STAGE_BYTES + C::KV_BYTES);
     wg_commit();
-    bar_arrive(bar_other, 256);
+    if constexpr (C::NC == 2) bar_arrive(bar_other, 256);
     wg_wait0();
     fence_regs(st.O);
-    if (c == 0) bar_sync(1, 256);  // takes warpgroup 1's last hand-over
+    // takes warpgroup 1's last hand-over
+    if (C::NC == 2 && c == 0) bar_sync(1, 256);
 
     // out = r(acc / l) (MXU: r(acc)); l's four partial sums per row live
     // in a quad
@@ -848,6 +999,35 @@ __device__ __forceinline__ void flash_sm90_body(
     const int r0 = q0 + 64 * c + 16 * warp + g;
     const int r1 = r0 + 8;
     bf16* ob = o + b * osb + h * osh;
+    if constexpr (C::WIDE) {
+      // through shared memory: the Q tile is free once the last QK^T is
+      // done. Rows of DP * 2 = 512 bytes whose 16-byte chunks are XOR-
+      // swizzled by row % 8 (the fragment writes meet no bank conflict),
+      // then each warp writes its 16 rows out in 16-byte stores, a whole
+      // row per instruction
+      // out = r(acc * (1 / l)): one division a row, not 128 a thread (an
+      // fp32 rounding of the quotient apart from acc / l; MXU: r(acc))
+      const float i0 = FORM == MXU ? 1.0f : 1.0f / l0;
+      const float i1 = FORM == MXU ? 1.0f : 1.0f / l1;
+      unsigned char* ot = gbase + (16 * warp) * (DP * 2);
+      // (generic writes after the async proxy's reads of the tile)
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+#pragma unroll
+      for (int i = 0; i < DP / 8; ++i) {
+        const uint32_t w0 = pack_bf16(st.O[4 * i] * i0, st.O[4 * i + 1] * i0);
+        const uint32_t w1 = pack_bf16(st.O[4 * i + 2] * i1, st.O[4 * i + 3] * i1);
+        *reinterpret_cast<uint32_t*>(ot + g * (DP * 2) + ((i ^ g) << 4) + 4 * t) = w0;
+        *reinterpret_cast<uint32_t*>(ot + (g + 8) * (DP * 2) + ((i ^ g) << 4) + 4 * t) = w1;
+      }
+      __syncwarp();
+      static_assert(DP / 8 == 32, "one 16-byte chunk of a row per lane");
+      for (int rr = 0; rr < 16; ++rr) {
+        const int row = q0 + 16 * warp + rr;
+        if (row < Sq && 8 * lane < D)
+          *reinterpret_cast<uint4*>(ob + row * oss + 8 * lane) =
+              *reinterpret_cast<const uint4*>(ot + rr * (DP * 2) + ((lane ^ (rr & 7)) << 4));
+      }
+    } else {
 #pragma unroll
     for (int i = 0; i < DP / 8; ++i) {
       const int col = 8 * i + 2 * t;
@@ -868,6 +1048,7 @@ __device__ __forceinline__ void flash_sm90_body(
                 pack_bf16(st.O[4 * i + 2] / l1, st.O[4 * i + 3] / l1);
         }
       }
+    }
     }
   }
 }
@@ -927,6 +1108,7 @@ bool encode_qkv(CUtensorMap* qm, CUtensorMap* km, CUtensorMap* vm,
                 const void* q, const void* k, const void* v, int B, int Sq,
                 int Skv, int H, int D, const long long* st) {
   constexpr int BE = Cfg<DP, SW, BN>::BE;
+  constexpr int BQ = Cfg<DP, SW, BN>::BQ;
   return encode(qm, q, B, Sq, H, D, st[0], st[1], st[2], BE, BQ, SW) &&
          encode(km, k, B, Skv, H, D, st[3], st[4], st[5], BE, BN, SW) &&
          encode(vm, v, B, Skv, H, D, st[6], st[7], st[8], BE, BN, SW);
@@ -936,22 +1118,24 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-// what every entry point takes: D % 8 == 0, 8 <= D <= 160, 16-byte
+// what every entry point takes: D % 8 == 0, 8 <= D <= 256, 16-byte
 // aligned q/k/v bases and strides in multiples of 8 elements, 4-byte
-// aligned o with even strides; strides in elements (b, s, h) for q, k, v, o
+// aligned o with even strides (past D = 160, whose rows leave in 16-byte
+// stores, 16-byte aligned with strides in multiples of 8); strides in
+// elements (b, s, h) for q, k, v, o
 bool operands_ok(const void* q, const void* k, const void* v, const void* o,
                  int B, int Sq, int Skv, int H, int D, const long long* st) {
-  bool ok = D % 8 == 0 && D >= 8 && D <= 160 && Sq >= 1 && Skv >= 1 &&
+  bool ok = D % 8 == 0 && D >= 8 && D <= 256 && Sq >= 1 && Skv >= 1 &&
             H <= 65535 && B <= 65535 && aligned16(q) && aligned16(k) &&
             aligned16(v) && (reinterpret_cast<uintptr_t>(o) & 3) == 0;
   for (int i = 0; i < 9; ++i) ok = ok && st[i] % 8 == 0;
-  for (int i = 9; i < 12; ++i) ok = ok && st[i] % 2 == 0;
-  return ok;
+  for (int i = 9; i < 12; ++i) ok = ok && st[i] % (D > 160 ? 8 : 2) == 0;
+  return ok && (D <= 160 || aligned16(o));
 }
 
 // One launch of the kernel Pick<FORM, DP, SW, BN>::kernel() (each source
 // names its own kernels by form and instance): q, k and v's tensor maps,
-// then one CTA per (128 queries, h, b). `extra` are the kernel's
+// then one CTA per (BQ queries, h, b). `extra` are the kernel's
 // arguments after mult.
 template <template <int, int, int, int> class Pick, int FORM, int DP, int SW,
           int BN, typename... Extra>
@@ -961,15 +1145,15 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   CUtensorMap qm, km, vm;
   if (!encode_qkv<DP, SW, BN>(&qm, &km, &vm, q, k, v, B, Sq, Skv, H, D, st))
     return cudaErrorInvalidValue;
+  using C = Cfg<DP, SW, BN>;
   auto kern = Pick<FORM, DP, SW, BN>::kernel();
-  constexpr int SMEM = Cfg<DP, SW, BN>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return err;
-  dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  kern<<<grid, THREADS, SMEM, stream>>>(qm, km, vm, static_cast<bf16*>(o), Sq,
-                                        Skv, D, st[9], st[10], st[11], mult,
-                                        extra...);
+  dim3 grid((Sq + C::BQ - 1) / C::BQ, H, B);
+  kern<<<grid, C::THREADS, C::SMEM, stream>>>(
+      qm, km, vm, static_cast<bf16*>(o), Sq, Skv, D, st[9], st[10], st[11],
+      mult, extra...);
   return cudaGetLastError();
 }
 
@@ -989,8 +1173,11 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
   if (D <= 128)
     return launch<Pick, FORM, 128, 128, 64>(q, k, v, o, B, Sq, Skv, H, D, st,
                                             mult, s, extra...);
-  return launch<Pick, FORM, 160, 64, 64>(q, k, v, o, B, Sq, Skv, H, D, st,
-                                         mult, s, extra...);
+  if (D <= 160)
+    return launch<Pick, FORM, 160, 64, 64>(q, k, v, o, B, Sq, Skv, H, D, st,
+                                           mult, s, extra...);
+  return launch<Pick, FORM, 256, 128, 64>(q, k, v, o, B, Sq, Skv, H, D, st,
+                                          mult, s, extra...);
 }
 
 }  // namespace

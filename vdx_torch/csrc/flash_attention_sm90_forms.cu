@@ -18,7 +18,7 @@
 //   flash_sm90f_fastexp2_kernel   PERIOD with vdx's cubic
 //   flash_sm90f_noexp_kernel      PERIOD with x + 1
 //
-// Instances: one per (form, DP): twenty.
+// Instances: one per (form, DP), DP = 48, 80, 128, 160, 256: twenty-five.
 
 #include "flash_attention_sm90.cuh"
 
@@ -26,7 +26,7 @@ namespace {
 
 #define VDX_SM90_FORM(NAME, FORM)                                          \
   template <int DP, int SW, int BN>                                        \
-  __global__ void __launch_bounds__(THREADS, 1)                            \
+  __global__ void __launch_bounds__(Cfg<DP, SW, BN>::THREADS, 1)           \
   NAME(const __grid_constant__ CUtensorMap qmap,                           \
        const __grid_constant__ CUtensorMap kmap,                           \
        const __grid_constant__ CUtensorMap vmap, bf16* __restrict__ o,     \

@@ -62,10 +62,13 @@ _SIGNATURES = {
     "vdx_flash_attention_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I]
     + [_L] * 12 + [_F, _I, _I, _P],
     # q, k, v, o, P, F, H, D, q strides (p, f, h), k strides, v strides,
-    # o strides, mult, bf16, vec (16-byte row loads), stream
-    **{name: [_P, _P, _P, _P, _I, _I, _I, _I] + [_L] * 12 + [_F, _I, _I, _P]
-       for name in ("vdx_temporal_attention_blockdiag",
-                    "vdx_temporal_attention_tc", "vdx_temporal_attention_cp")},
+    # o strides, mult, mode (0 K6, 1 K7/K8, 2 K9), vec (16-byte row
+    # loads), stream: bf16 K6-K8 on the tensor cores
+    "vdx_temporal_attention_mma": [_P, _P, _P, _P, _I, _I, _I, _I] + [_L] * 12
+    + [_F, _I, _I, _P],
+    # the same with bf16 (else fp32) before vec: K9, and fp32 K6-K8
+    "vdx_temporal_attention_simt": [_P, _P, _P, _P, _I, _I, _I, _I]
+    + [_L] * 12 + [_F, _I, _I, _I, _P],
     # x, scale, bias, y, B, S, C, G, eps, silu, stream
     "vdx_group_norm_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     "vdx_group_norm_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],

@@ -39,19 +39,22 @@ frames of [P, F, H, D] tensors (the motion modules' temporal sites),
 in base 2 with l summed from the unrounded p and PV from p rounded to v's
 dtype. K6 folds scale * log2(e) into q in q's own dtype (so under bf16
 the constant and the product round to bf16); K7 and K8 multiply the fp32
-scores by it, and compute the identical function. All three run as modes
-of one Hopper kernel (``csrc/temporal_attention.cu``; K9, in
-kernels/temporal_attention_cp.py, is its third mode).
+scores by it, and compute the identical function. In bf16 all three run
+on the tensor cores (``mma.sync``) as modes of one Hopper kernel in
+``csrc/temporal_attention.cu``; K9 (kernels/temporal_attention_cp.py) and
+fp32 operands run the same source's SIMT kernel (fp32 FMAs);
+:func:`temporal_kernel_for` is that rule.
 
 Each wrapper launches its CUDA kernel for a CUDA tensor and raises on
 anything the kernel does not take; :func:`kernel_for` is the one routing
-rule: every form and K4 in bf16 at D % 8 == 0, D <= 160 with 16-byte
+rule: every form and K4 in bf16 at D % 8 == 0, D <= 256 with 16-byte
 aligned rows run the wgmma + TMA pipeline (``csrc/flash_attention_sm90.cuh``:
 K1, K4 and exp in ``csrc/flash_attention_sm90.cu``, the other K1' forms and
-K5 in ``csrc/flash_attention_sm90_forms.cu``); bf16 past D = 160, on rows
-that are not 16-byte aligned, and K4 at D % 8 != 0 a mode of the mma.sync
-template (``csrc/flash_attention_runmax.cu``); fp32 a SIMT kernel with fp32
-p (``csrc/flash_attention_f32.cu``); K6-K9 fp32 FMAs for either dtype.
+K5 in ``csrc/flash_attention_sm90_forms.cu``; past D = 160 its instance with
+one consumer warpgroup); bf16 on rows that are not 16-byte aligned, and K4
+at D % 8 != 0, a mode of the mma.sync template
+(``csrc/flash_attention_runmax.cu``); fp32 a SIMT kernel with fp32 p
+(``csrc/flash_attention_f32.cu``).
 :func:`counter_for` names each route's counter. For a CPU tensor each
 computes its plain PyTorch version, which the tests and ``chip_smoke.py``
 hold the kernel against.
@@ -84,17 +87,17 @@ FORM_KERNEL = {"exp": "K1' exp", "exp2": "K1' exp2",
                "mxu_only": "K1' mxu_only"}
 # each form's counter off that pipeline, in .form_launches: " template"
 # means off the wgmma + TMA pipeline, so one counter takes the launches of
-# two kernels, the mma.sync template (bf16: D > 160 or rows that are not
-# 16-byte aligned) and the SIMT kernel (fp32); so do "K1 static" and "K4
-# template"
+# two kernels, the mma.sync template (bf16: rows that are not 16-byte
+# aligned, K4 at D % 8 != 0) and the SIMT kernel (fp32); so do "K1 static"
+# and "K4 template"
 TEMPLATE_KERNEL = {f: "K1 static" if f == "staticmax" else f"{n} template"
                    for f, n in FORM_KERNEL.items()}
 # fp32 outputs against the plain version: sums in another order
 FP32_TOL = 1e-4
-# the mma.sync and SIMT kernels take head dims up to 256, the wgmma + TMA
-# kernel up to 160 (every SD-1.5 site: 40, 80, 160)
+# every CUDA flash attention kernel takes head dims up to 256 (the wgmma +
+# TMA pipeline: 48, 80, 128, 160 with two consumer warpgroups, 256 with one)
 MAX_D = 256
-SM90_MAX_D = 160
+SM90_MAX_D = 256
 # the CUDA kernels by source (csrc/<name>.cu): the wgmma + TMA pipeline's
 # K1/K4 instances (and exp, K4's) and its other forms, the mma.sync
 # template, the fp32 SIMT kernel
@@ -104,6 +107,10 @@ SM90, SM90_FORMS, TEMPLATE, SIMT = (
 # csrc/temporal_attention.cu takes up to 32 frames and head dims up to 160
 TEMPORAL_MAX_F = 32
 TEMPORAL_MAX_D = 160
+# its modes, in the order of the C entry points' mode codes: K6, K7/K8, K9
+TEMPORAL_MODES = ("blockdiag", "tc", "cp")
+# its kernels: bf16 K6-K8 on the tensor cores, K9 and fp32 on the FMA pipes
+TEMPORAL_MMA, TEMPORAL_SIMT = "temporal_mma", "temporal_simt"
 
 
 def min_pad_block(S: int, cap: int) -> int:
@@ -280,7 +287,7 @@ def kernel_for(exp_impl, dtype: torch.dtype, D: int, aligned: bool) -> str:
     """The routing rule: which CUDA kernel computes flash attention in form
     ``exp_impl`` (one of :data:`EXP_IMPLS`; None for K4, ``flash_attention``)
     on ``dtype`` operands of head dim D, ``aligned`` when every q/k/v row
-    and base is 16-byte aligned. -> in bf16 at D % 8 == 0, 8 <= D <= 160 on
+    and base is 16-byte aligned. -> in bf16 at D % 8 == 0, 8 <= D <= 256 on
     aligned rows the wgmma + TMA pipeline: :data:`SM90` for K1
     (staticmax), K4 and exp, :data:`SM90_FORMS` for every other form; else
     :data:`TEMPLATE` (bf16) or :data:`SIMT` (fp32). Never the plain
@@ -429,7 +436,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     CUDA: one launch on the current stream, no synchronise, on the kernel
     :func:`kernel_for` names: the wgmma + TMA kernel's running-max form
-    (bf16, D % 8 == 0, D <= 160, aligned rows), counted in ``launches``;
+    (bf16, D % 8 == 0, D <= 256, aligned rows), counted in ``launches``;
     else the ``exp`` form of the mma.sync kernel (bf16; element loads when
     D % 8 != 0 or the rows are not aligned) or of the SIMT kernel (fp32),
     counted apart in ``template_launches`` ("K4 template"). CPU: the plain
@@ -510,15 +517,36 @@ def _check_blockdiag(what: str, q, k, v, block: int, heads=None) -> None:
                          f"got block={block}, F={F}")
 
 
-def launch_temporal(entry: str, what: str, q: torch.Tensor, k: torch.Tensor,
+def temporal_kernel_for(mode: str, dtype: torch.dtype) -> str:
+    """The routing rule of ``csrc/temporal_attention.cu``: which kernel runs
+    ``mode`` (one of :data:`TEMPORAL_MODES`: "blockdiag" K6, "tc" K7/K8,
+    "cp" K9) on ``dtype`` operands. -> :data:`TEMPORAL_MMA` (bf16 K6-K8:
+    mma.sync bf16 tensor cores, fp32 accumulators) or :data:`TEMPORAL_SIMT`
+    (K9, all fp32 arithmetic, and fp32 K6-K8: fp32 FMAs). Any row
+    alignment and head dim up to 160: the kernels stage element by element
+    where 16-byte loads do not fit."""
+    if mode not in TEMPORAL_MODES:
+        raise ValueError(f"unknown temporal mode {mode!r}; {TEMPORAL_MODES}")
+    return (TEMPORAL_MMA if dtype == torch.bfloat16 and mode != "cp"
+            else TEMPORAL_SIMT)
+
+
+def launch_temporal(mode: str, what: str, q: torch.Tensor, k: torch.Tensor,
                     v: torch.Tensor, mult: float) -> torch.Tensor:
-    """One launch of a mode of ``csrc/temporal_attention.cu`` on CUDA
-    [P, F, H, D] operands (strided views, unit stride on D); -> a
-    contiguous output of q's shape and dtype."""
-    if q.device.type != "cuda":
-        raise ValueError(f"{what} runs on cuda or cpu tensors, got {q.device}")
+    """One launch of ``mode`` of ``csrc/temporal_attention.cu`` (one of
+    :data:`TEMPORAL_MODES`) on CUDA [P, F, H, D] operands (strided views,
+    unit stride on D), on the kernel :func:`temporal_kernel_for` names; ->
+    a contiguous output of q's shape and dtype. The range and dtype are
+    checked before the device."""
+    P, F, H, D = q.shape
+    if not (1 <= F <= TEMPORAL_MAX_F and 1 <= D <= TEMPORAL_MAX_D):
+        raise ValueError(f"{what}: the Hopper kernel takes 1..{TEMPORAL_MAX_F} "
+                         f"frames and head dims 1..{TEMPORAL_MAX_D}; got "
+                         f"F={F}, D={D}")
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"{what} takes bf16 or fp32, got {q.dtype}")
+    if q.device.type != "cuda":
+        raise ValueError(f"{what} runs on cuda or cpu tensors, got {q.device}")
     for name, t in (("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
@@ -527,11 +555,6 @@ def launch_temporal(entry: str, what: str, q: torch.Tensor, k: torch.Tensor,
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(-1) != 1:
             raise ValueError(f"{what} needs {name} with unit stride on D")
-    P, F, H, D = q.shape
-    if not (1 <= F <= TEMPORAL_MAX_F and 1 <= D <= TEMPORAL_MAX_D):
-        raise ValueError(f"{what}: the Hopper kernel takes 1..{TEMPORAL_MAX_F} "
-                         f"frames and head dims 1..{TEMPORAL_MAX_D}; got "
-                         f"F={F}, D={D}")
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
     if o.numel() == 0:
         return o
@@ -539,10 +562,16 @@ def launch_temporal(entry: str, what: str, q: torch.Tensor, k: torch.Tensor,
     vec = D % 8 == 0 and all(
         not any(st % per_16b for st in t.stride()[:3]) and t.data_ptr() % 16 == 0
         for t in (q, k, v))
-    err = getattr(_lib.lib(), entry)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        P, F, H, D, *_strides(q, k, v, o), float(mult),
-        int(q.dtype == torch.bfloat16), int(vec), _lib.stream_ptr(q.device))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            P, F, H, D, *_strides(q, k, v, o), float(mult),
+            TEMPORAL_MODES.index(mode))
+    if temporal_kernel_for(mode, q.dtype) == TEMPORAL_MMA:
+        err = _lib.lib().vdx_temporal_attention_mma(
+            *args, int(vec), _lib.stream_ptr(q.device))
+    else:
+        err = _lib.lib().vdx_temporal_attention_simt(
+            *args, int(q.dtype == torch.bfloat16), int(vec),
+            _lib.stream_ptr(q.device))
     _lib.check(err, what)
     return o
 
@@ -558,14 +587,14 @@ def flash_attention_blockdiag(q: torch.Tensor, k: torch.Tensor,
     block % 128 == 0 and F | block. ``block`` is the TPU kernel's tile of
     the folded P*F token axis; the Hopper kernel needs none (one warp per
     position and head) and keeps it only for those preconditions. CUDA:
-    one launch, F <= 32 and D <= 160. CPU: the plain version.
+    one launch (bf16: the tensor-core kernel), F <= 32 and D <= 160. CPU:
+    the plain version.
     """
     _check_blockdiag("K6", q, k, v, block)
     if q.device.type == "cpu":
         return flash_attention_blockdiag_plain(q, k, v, scale=scale)
     mult = torch.tensor(scale * LOG2E, dtype=q.dtype).item()
-    o = launch_temporal("vdx_temporal_attention_blockdiag", "K6 blockdiag",
-                        q, k, v, mult)
+    o = launch_temporal("blockdiag", "K6 blockdiag", q, k, v, mult)
     flash_attention_blockdiag.launches += 1
     return o
 
@@ -580,12 +609,12 @@ def flash_attention_blockdiag_tc(q: torch.Tensor, k: torch.Tensor,
     (vdx's [T, C]-layout form). Raises where vdx asserts (H == heads,
     D % 8 == 0, block % 128 == 0, F | block, one shape for q, k, v); the
     Hopper kernel needs no ``block``. CUDA: one launch of the kernel's
-    fp32-scaled-scores mode, F <= 32, D <= 160. CPU: the plain version."""
+    fp32-scaled-scores mode (bf16: on the tensor cores), F <= 32,
+    D <= 160. CPU: the plain version."""
     _check_blockdiag("K7", q, k, v, block, heads)
     if q.device.type == "cpu":
         return flash_attention_blockdiag_tc_plain(q, k, v, scale=scale)
-    o = launch_temporal("vdx_temporal_attention_tc", "K7 blockdiag_tc",
-                        q, k, v, scale * LOG2E)
+    o = launch_temporal("tc", "K7 blockdiag_tc", q, k, v, scale * LOG2E)
     flash_attention_blockdiag_tc.launches += 1
     return o
 
@@ -601,8 +630,7 @@ def flash_attention_blockdiag_tc2(q: torch.Tensor, k: torch.Tensor,
     _check_blockdiag("K8", q, k, v, block, heads)
     if q.device.type == "cpu":
         return flash_attention_blockdiag_tc_plain(q, k, v, scale=scale)
-    o = launch_temporal("vdx_temporal_attention_tc", "K8 blockdiag_tc2",
-                        q, k, v, scale * LOG2E)
+    o = launch_temporal("tc", "K8 blockdiag_tc2", q, k, v, scale * LOG2E)
     flash_attention_blockdiag_tc2.launches += 1
     return o
 

@@ -7,7 +7,8 @@ the inputs taken to fp32, q * scale in fp32, the scores' softmax in base
 e normalised before PV (p = e / sum e), PV in fp32, and one rounding to
 q's dtype at the end. The TPU kernel's [F, C, P] layout (positions on
 lanes) is a Mosaic layout choice, not part of the function; on Hopper K9
-is the third mode of the kernel that runs K6-K8.
+is the third mode of csrc/temporal_attention.cu, on its SIMT kernel (fp32
+FMAs, q, k and v staged in their own dtype, scores register-blocked).
 
 vdx's ``interpret`` argument (run the Pallas kernel in interpret mode) has
 no meaning here: a CPU tensor takes the plain version, a CUDA tensor the
@@ -58,8 +59,7 @@ def temporal_attention_cp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"H={H}, D={D}")
     if q.device.type == "cpu":
         return temporal_attention_cp_plain(q, k, v, scale=scale)
-    o = launch_temporal("vdx_temporal_attention_cp", "K9 temporal_attention_cp",
-                        q, k, v, scale)
+    o = launch_temporal("cp", "K9 temporal_attention_cp", q, k, v, scale)
     temporal_attention_cp.launches += 1
     return o
 
