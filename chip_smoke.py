@@ -10,11 +10,17 @@ Phases, one flushed line each with its seconds:
      link (cached by source hash)
   3. kernels against their plain PyTorch versions at the main path's
      shapes: K1 (staticmax flash attention) and K4 (running max) on the
-     wgmma + TMA kernel, K2 and K3 (fused GroupNorm);
-     kernel, plain and library times (CUDA events) beside each bound; K3
-     at the 2560-channel GN shapes that the GN dispatch used to refuse
-     ([32,1024,2560] bf16, [32,576,2560] fp32), driven once through
-     ops.groupnorm with the counters reset
+     wgmma + TMA kernel, K2 (one-pass cluster GroupNorm) and K3
+     (streaming GroupNorm), each GN row on the kernel the launch plan
+     gives its shape; kernel, plain and library times (CUDA events)
+     beside each bound; the 2560-channel GN shapes that the first GN
+     dispatch refused ([32,1024,2560] bf16, [32,576,2560] fp32), driven
+     once through ops.groupnorm with the counters reset; then one [gn]
+     line a path (a UNet call, a decode chunk, at 512 and 768): every
+     GroupNorm of it through ops.groupnorm with the counters reset, its
+     launches against the plan, the summed kernel, bound and
+     F.group_norm ms (scripts/bench_gn_torch.py); the timed calls check
+     the plan's K2 and K3 counts
   4. init: full-width random weights generated on the card; the seeded
      initial noise (vdx_torch.core.rng) on the card against the CPU
   5. warm-up: the workload at 2 steps
@@ -258,31 +264,50 @@ def check_kernels(dev):
         del q, k, v, qt, kt, vt, out
         torch.cuda.empty_cache()
 
-    # the gate sends the 768 level-0 resnet GN (a 184 KB group slab) to K3
-    if KG.k2_viable(9216, 320, 32, 2) or not KG.k3_viable(9216, 320, 32, 2):
-        raise SystemExit("GN gate: [32, 9216, 320] bf16 should go to K3")
+    # the launch plan: K2 where a cluster holds a stripe with two CTAs an
+    # SM (the 768 level-0 resnet GN: a 1.47 MB stripe on 16 CTAs), K3
+    # where not (the 768 level-0 motion GN, a 47 MB stripe)
+    if KG.gn_plan(32, 9216, 320, 32, 2).route != "K2" \
+            or KG.gn_plan(2, 147456, 320, 32, 2).route != "K3":
+        raise SystemExit("GN plan: [32, 9216, 320] bf16 should go to K2, "
+                         "[2, 147456, 320] to K3")
     bf16, fp32 = torch.bfloat16, torch.float32
+    gpu_ms = load_script("bench_gn_torch").gpu_ms
     gn_cases = (  # (kernel, shape, dtype, eps, silu, where, path, stage)
         ("K2", (32, 4096, 320), bf16, 1e-5, True,
          "UNet level-0 resnet GN-SiLU", "512", "denoise"),
+        ("K2", (32, 4096, 960), bf16, 1e-5, True,
+         "UNet up-block-3 resnet GN-SiLU, 960 channels", "512", "denoise"),
         ("K3", (2, 65536, 320), bf16, 1e-6, False,
          "level-0 motion-module GN", "512", "denoise"),
         ("K3", (8, 262144, 128), bf16, 1e-6, True,
          "VAE decoder GN-SiLU at 512x512", "512", "decode"),
-        ("K3", (32, 9216, 320), bf16, 1e-5, True,
+        ("K2", (32, 9216, 320), bf16, 1e-5, True,
          "UNet level-0 resnet GN-SiLU at 768x768", "768", "denoise"),
+        ("K3", (32, 9216, 960), bf16, 1e-5, True,
+         "UNet up-block-3 resnet GN-SiLU at 768x768 (a 16-CTA stripe, "
+         "one CTA an SM: K3 by the plan)", "768", "denoise"),
+        ("K3", (2, 147456, 320), bf16, 1e-6, False,
+         "level-0 motion-module GN at 768x768", "768", "denoise"),
         ("K3", (8, 589824, 128), bf16, 1e-6, True,
          "VAE decoder GN-SiLU at 768x768", "768", "decode"),
-        # the up-block-1 resnet GN, over K2's slab gate: 1024x1024 in bf16,
-        # 768x768 under the fp32 policy (both raised before K3 took 2560)
-        ("K3", GN2560_SHAPES[0], bf16, 1e-5, True,
+        ("K3", (8, 589824, 256), bf16, 1e-6, True,
+         "VAE decoder GN-SiLU at 768x768, 256 channels (4.8 GB)", "768",
+         "decode"),
+        # the up-block-1 resnet GN: 1024x1024 in bf16, 768x768 under the
+        # fp32 policy (both over the first GN kernels' slab gate)
+        ("K2", GN2560_SHAPES[0], bf16, 1e-5, True,
          "up-block-1 resnet GN-SiLU at 1024x1024", "gn2560", "dispatch"),
-        ("K3", GN2560_SHAPES[1], fp32, 1e-5, True,
+        ("K2", GN2560_SHAPES[1], fp32, 1e-5, True,
          "up-block-1 resnet GN-SiLU at 768x768, fp32", "gn2560", "dispatch"),
     )
     for kname, (B, S, C), dtype, eps, silu, where, path, stage in gn_cases:
         t0 = time.time()
         fn = KG.fused_group_norm if kname == "K2" else KG.fused_group_norm_2phase
+        plan = KG.gn_plan(B, S, C, 32, dtype.itemsize)
+        if plan.route != kname:  # the row's kernel is the one its path runs
+            raise SystemExit(f"GN plan: {[B, S, C]} goes to {plan.route}, "
+                             f"not {kname}")
         x = randn((B, S, C), mean=0.5, dtype=dtype)
         scale = 1.0 + 0.1 * torch.randn(C, generator=gen, device=dev)
         bias = 0.1 * torch.randn(C, generator=gen, device=dev)
@@ -297,9 +322,12 @@ def check_kernels(dev):
             y = F.group_norm(xt, 32, scale.to(x.dtype), bias.to(x.dtype), eps)
             return F.silu(y) if silu else y
 
-        ms = cuda_ms(lambda: fn(x, scale, bias, **kw))
+        # a GN launch takes 0.01-2.5 ms, near the host's time to make one:
+        # the kernel and library calls are timed queued behind a sleep
+        # kernel (bench_gn_torch.gpu_ms), so the host's share does not show
+        ms = gpu_ms(lambda: fn(x, scale, bias, **kw))
         plain_ms = cuda_ms(lambda: KG.group_norm_moments_plain(x, scale, bias, **kw))
-        lib_ms = cuda_ms(library)
+        lib_ms = gpu_ms(library, reps=4)
         # ~8 fp32 operations per element (two moments, affine, SiLU)
         b_ms, b_by = bound(8.0 * x.numel(),
                                    2 * x.numel() * x.element_size(),
@@ -315,7 +343,12 @@ def check_kernels(dev):
             tol=tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
             library="F.group_norm" + (" + F.silu" if silu else ""),
             bound_ms=b_ms, bound_by=b_by,
-            seconds=time.time() - t0, note=""))
+            seconds=time.time() - t0,
+            note=(f"cluster {plan.cluster} x {plan.rows_per_cta} rows, "
+                  f"stripe {plan.stripe_channels} channels"
+                  if kname == "K2" else
+                  f"{plan.n_chunks} chunks of {plan.rows_per_chunk} rows")
+            + "; ms and library_ms queued behind a sleep kernel"))
         del x, out, ref, xt
         torch.cuda.empty_cache()
 
@@ -834,9 +867,59 @@ def drive_gn2560(dev) -> dict:
     torch.cuda.synchronize()
     log(f"[gn2560] ops.groupnorm.group_norm_silu at {GN2560_SHAPES} "
         f"(bf16, fp32): launches={launches}")
-    if launches["K3"] != 2 or launches["K2"]:
-        raise SystemExit(f"gn2560: expected K3 twice, K2 never: {launches}")
+    if launches["K2"] != 2 or launches["K3"]:
+        raise SystemExit(f"gn2560: expected K2 twice, K3 never: {launches}")
     return {"dispatch": launches}
+
+
+def check_gn_sites(dev) -> dict:
+    """Every GroupNorm of one UNet call (CFG batch 2 x 16 frames) and one
+    8-frame decode chunk at 512x512 and 768x768, traced on the meta device
+    (scripts/bench_gn_torch.py), each driven through ops.groupnorm as
+    often as the path runs it with the GN counters reset: one [gn] line a
+    path with the launches (checked against the launch plan, kernels
+    .groupnorm.gn_plan), the summed kernel ms, the summed bound and the
+    summed F.group_norm (+ F.silu) ms. -> {(size, "unet" or "decode"):
+    launches by counter}"""
+    import torch
+
+    from vdx_torch.kernels import groupnorm as KG
+
+    bench = load_script("bench_gn_torch")
+    expected = {}
+    for size in (512, 768):
+        for path, sites in bench.gn_sites(size, size).items():
+            t0 = time.time()
+            want = {"K2": 0, "K3": 0}
+            for (B, S, C, G, _, _), n in sites.items():
+                want[KG.gn_plan(B, S, C, G, 2).route] += n
+            launches = bench.drive(sites, dev)
+            sums = bench.path_sums(bench.time_sites(sites, dev))
+            log(f"[gn] {path} {size}x{size}: {sums['sites']} GroupNorms "
+                f"through ops.groupnorm, launches {launches} (plan {want}) "
+                f"kernel_ms={sums['ms']:.4f} bound_ms={sums['bound_ms']:.4f} "
+                f"library_ms={sums['library_ms']:.4f} (F.group_norm + F.silu "
+                f"where the site has it; each site's ms times its count) "
+                f"({time.time() - t0:.1f}s)")
+            if launches != want:
+                raise SystemExit(f"[gn] {path} {size}: launches {launches}, "
+                                 f"the plan says {want}")
+            expected[(str(size), path)] = want
+            torch.cuda.empty_cache()
+    return expected
+
+
+def check_gn_launches(by_stage: dict, per_call: dict, size: str,
+                      chunks: int) -> None:
+    """A timed call's GroupNorm launches: the plan's K2 and K3 counts per
+    UNet call times the steps, per decode chunk times the chunks."""
+    for stage, times, path in (("denoise", TIMED_STEPS, "unet"),
+                               ("decode", chunks, "decode")):
+        want = {k: n * times for k, n in per_call[(size, path)].items()}
+        got = {k: by_stage[stage][k] for k in want}
+        if got != want:
+            raise SystemExit(f"{size}: GroupNorm launches in the {stage} "
+                             f"{got}, the plan says {want}")
 
 
 def check_noise_on_card(pipe, dev) -> None:
@@ -1219,6 +1302,7 @@ def main() -> int:
     # ("512", "768"), the GN dispatch at 2560 channels, the temporal sites
     runs = {"gn2560": drive_gn2560(dev)}
     torch.cuda.empty_cache()
+    gn_per_call = check_gn_sites(dev)
 
     # 4. init: the pipeline with its defaults (Euler; the 512 path asks
     # for DDIM per call)
@@ -1246,7 +1330,8 @@ def main() -> int:
 
     # 6. reference: one denoiser evaluation, kernels against plain versions
     sites, site_calls = {}, {}  # the motion-module sites, for phase 12
-    reference_eval(pipe, "ddim", 512, ("K1", "K2/K3"), {"K1": 10, "K4": 0},
+    reference_eval(pipe, "ddim", 512, ("K1", "K2/K3"),
+                   {"K1": 10, "K4": 0} | gn_per_call[("512", "unet")],
                    sites, site_calls)
     torch.cuda.empty_cache()
 
@@ -1258,6 +1343,8 @@ def main() -> int:
         raise SystemExit(f"launches {by_stage}: expected K1 {10 * TIMED_STEPS} "
                          "times in the denoise loop (10 per UNet call), none after")
     check_no_forms(by_stage, "512x512 DDIM")
+    chunks = WORKLOAD["num_frames"] // WORKLOAD["decode_chunk"]
+    check_gn_launches(by_stage, gn_per_call, "512", chunks)
     check_frames(frames, (16, 512, 512, 3), lat_finite, "512x512 DDIM")
     paths = {"512": dict(secs=secs, by_stage=by_stage, peak=peak,
                          frames=frames.shape[0])}
@@ -1271,7 +1358,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 9. reference at 768x768: only K4 swapped for its plain version
-    reference_eval(pipe, pipe.scheduler, 768, ("K4",), {"K1": 10, "K4": 5},
+    reference_eval(pipe, pipe.scheduler, 768, ("K4",),
+                   {"K1": 10, "K4": 5} | gn_per_call[("768", "unet")],
                    sites, site_calls)
     torch.cuda.empty_cache()
 
@@ -1284,6 +1372,7 @@ def main() -> int:
         raise SystemExit(f"launches {by_stage}: expected {want} in the denoise "
                          "loop (K1 10, K4 5 per UNet call), none in the decode")
     check_no_forms(by_stage, "768x768 Euler")
+    check_gn_launches(by_stage, gn_per_call, "768", chunks)
     check_frames(frames, (16, 768, 768, 3), lat_finite, "768x768 Euler")
     paths["768"] = dict(secs=secs, by_stage=by_stage, peak=peak,
                         frames=frames.shape[0])
@@ -1330,7 +1419,6 @@ def main() -> int:
     # decode (per chunk), the GN dispatch at 2560 channels, the temporal
     # sites (per site), or the micro-benchmark's loop of its form and shape.
     runs.update({p: d["by_stage"] for p, d in paths.items()})
-    chunks = WORKLOAD["num_frames"] // WORKLOAD["decode_chunk"]
     per = {"denoise": ("launches_per_step", TIMED_STEPS),
            "decode": ("launches_per_chunk", chunks),
            "sites": ("launches_per_site", len(t_rows) // len(TEMPORAL))}

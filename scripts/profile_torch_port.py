@@ -33,8 +33,8 @@ CATEGORIES = (
     ("K4 flash attention (ours)", ("flash_sm90_runmax",)),
     ("K1'/K5 flash attention forms (ours)", ("flash_sm90f_", "flash_mma_bf16",
                                              "flash_f32")),
-    ("K2/K3 GroupNorm (ours)", ("gn_group_kernel", "gn_stats_kernel",
-                                "gn_finalize_kernel", "gn_apply_kernel")),
+    ("K2/K3 GroupNorm (ours)", ("gn_cluster_kernel", "gn_stream_stats_kernel",
+                                "gn_stream_apply_kernel")),
     ("convolution", ("conv", "fprop", "dgrad", "winograd", "implicit")),
     ("matmul", ("gemm", "gemv", "nvjet", "cutlass", "xmma", "sm90_", "cublas",
                 "matmul")),

@@ -102,14 +102,25 @@ FP32_CASES = [("K1", 2, 300, 300, 2, 40),
               ("K4", 2, 300, 300, 2, 160),
               ("K4", 1, 100, 200, 2, 20),
               ("K4", 1, 129, 70, 1, 256)]
-GN_CASES = [(3, 1000, 320, 32, 1e-5, True),
+# Each GN case runs on K2 (where a cluster holds its stripe) and on K3, in
+# bf16 and fp32: ragged last CTA (K2) and last chunk (K3) at S = 1001;
+# 8-group stripes of 128 channels; one CTA a stripe; K3's column passes
+# at 2560 channels and its cap at 4096 (K2's widest stripe: 128 channels,
+# 512 bytes in fp32); K2's largest cluster (16 CTAs, two an SM) at the 768
+# level-2 motion GN; the widest 16-CTA stripe (960 channels, one CTA an
+# SM, which the dispatch sends to K3); stripes widened to 4 groups.
+GN_CASES = [(3, 1001, 320, 32, 1e-5, True),
             (2, 777, 128, 32, 1e-6, False),
             (2, 64, 640, 32, 1e-6, True),
-            (2, 100, 2560, 32, 1e-5, True),   # K3: two column passes
-            (1, 30, 4096, 32, 1e-5, False)]   # K3's channel cap
-# the up-block-1 resnet GN (2560 channels) over K2's slab gate: K3
-K3_C2560_CASES = [(torch.bfloat16, 32, 1024),  # 1024x1024, bf16
-                  (torch.float32, 32, 576)]    # 768x768, fp32
+            (2, 100, 2560, 32, 1e-5, True),
+            (1, 30, 4096, 32, 1e-5, False),
+            (2, 9216, 1280, 32, 1e-6, False),
+            (2, 9216, 960, 32, 1e-5, True),
+            (4, 64, 1280, 32, 1e-5, True)]
+# the up-block-1 resnet GN (2560 channels), which the slab gate of the
+# first GroupNorm kernels refused: 1024x1024 in bf16, 768x768 in fp32
+GN2560_CASES = [(torch.bfloat16, 32, 1024),
+                (torch.float32, 32, 576)]
 FORMS = ("exp", "exp2", "fastexp2", "staticmax", "staticaug", "noexp",
          "mxu_only")
 # (B, Sq, Skv, H, D, block_k) for every form in bf16 and fp32: ragged Sq
@@ -362,7 +373,9 @@ def _check_gn(cuda, kernel, dtype, B, S, C, G, eps, silu):
     scale = 1.0 + 0.1 * torch.randn(C, generator=gen, device=cuda)
     bias = 0.1 * torch.randn(C, generator=gen, device=cuda)
     fn = K.fused_group_norm if kernel == "k2" else K.fused_group_norm_2phase
-    if kernel == "k2" and not K.k2_viable(S, C, G, x.element_size()):
+    plan = (K.k2_plan(S, C, G, x.element_size()) if kernel == "k2"
+            else K.k3_plan(B, S, C, G, x.element_size()))
+    if plan is None:
         with pytest.raises(ValueError):
             fn(x, scale, bias, num_groups=G, eps=eps, with_silu=silu)
         return
@@ -373,12 +386,12 @@ def _check_gn(cuda, kernel, dtype, B, S, C, G, eps, silu):
     want = K.group_norm_moments_plain(x, scale, bias, num_groups=G, eps=eps,
                                       with_silu=silu)
     err = (got.float() - want.float()).abs().max().item()
-    assert err <= _tol(want), err
+    assert err <= _tol(want), (kernel, dtype, B, S, C, plan, err)
 
 
 def _check_gn_dispatch_matches_plain_formulation(cuda, shape):
-    """ops.group_norm_silu on CUDA (K2 or K3 by the gate) against the CPU
-    plain formulation, 5D input with stats over frames and space."""
+    """ops.group_norm_silu on CUDA (K2 or K3 by the launch plan) against
+    the CPU plain formulation, 5D input with stats over frames and space."""
     from vdx_torch.ops.groupnorm import group_norm_silu
 
     gen = torch.Generator(device=cuda).manual_seed(3)
@@ -391,20 +404,22 @@ def _check_gn_dispatch_matches_plain_formulation(cuda, shape):
     assert (got.cpu() - want).abs().max().item() <= 1e-4
 
 
-def _check_k3_at_2560_channels(cuda, dtype, B, S):
-    """The shapes that raised before K3 took C > 2048, through the
-    dispatch, against the plain version."""
+def _check_gn_dispatch_at_2560_channels(cuda, dtype, B, S):
+    """The shapes the first GN kernels' slab gate refused, through the
+    dispatch, on the kernel the launch plan names, against the plain
+    version."""
     from vdx_torch.kernels import groupnorm as K
 
     gen = torch.Generator(device=cuda).manual_seed(8)
     x = _randn((B, S, 2560), gen, cuda, dtype, mean=0.5)
-    assert not K.k2_viable(S, 2560, 32, x.element_size())
+    plan = K.gn_plan(B, S, 2560, 32, x.element_size())
+    fn = K.fused_group_norm if plan.route == "K2" else K.fused_group_norm_2phase
     scale = 1.0 + 0.1 * torch.randn(2560, generator=gen, device=cuda)
     bias = 0.1 * torch.randn(2560, generator=gen, device=cuda)
-    n0 = K.fused_group_norm_2phase.launches
+    n0 = fn.launches
     got = K.group_norm_silu_cuda(x, 32, scale, bias, 1e-5)
     torch.cuda.synchronize()
-    assert K.fused_group_norm_2phase.launches == n0 + 1
+    assert fn.launches == n0 + 1
     want = K.group_norm_moments_plain(x, scale, bias, num_groups=32, eps=1e-5,
                                       with_silu=True)
     err = (got.float() - want.float()).abs().max().item()
@@ -480,14 +495,20 @@ def _check_wrappers_raise_on_what_kernels_do_not_take(cuda):
         flash_attention(q16, q16.cpu(), q16, scale=1.0)
     with pytest.raises(TypeError):
         flash_attention(q16, q16.float(), q16, scale=1.0)
-    x = torch.randn(1, 70000, 100, device=cuda)  # C % 8 != 0, slab too big
-    with pytest.raises(NotImplementedError):
-        group_norm(x, 4, torch.ones(100, device=cuda),
-                   torch.zeros(100, device=cuda))
-    x = torch.randn(1, 70000, 4104, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError):  # over K3's 4096 channels
-        group_norm(x, 8, torch.ones(4104, device=cuda),
-                   torch.zeros(4104, device=cuda))
+    # GroupNorm: what neither K2 nor K3 takes raises, no plain fallback
+    for shape, G in (((1, 70000, 100), 4),        # C % 8 != 0
+                     ((1, 70000, 4104), 8),       # C > 4096
+                     ((2, 4096, 2048), 256)):     # G > 128
+        x = torch.randn(shape, device=cuda, dtype=torch.bfloat16)
+        C = shape[-1]
+        with pytest.raises(NotImplementedError):
+            group_norm(x, G, torch.ones(C, device=cuda),
+                       torch.zeros(C, device=cuda))
+    flat = torch.randn(2 * 1024 * 320 + 4, device=cuda, dtype=torch.bfloat16)
+    odd = flat[4:].view(2, 1024, 320)  # base 8 bytes past 16-byte alignment
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        group_norm(odd, 32, torch.ones(320, device=cuda),
+                   torch.zeros(320, device=cuda))
     # K6-K9: vdx's preconditions, then the kernel's own caps
     t = torch.randn(8, 16, 2, 40, device=cuda, dtype=torch.bfloat16)
     n0 = _temporal("k6")[0].launches
@@ -541,8 +562,8 @@ def test_gn_kernels_match_plain(cuda):
         for dtype in (torch.bfloat16, torch.float32):
             for case in GN_CASES:
                 _check_gn(cuda, kernel, dtype, *case)
-    for case in K3_C2560_CASES:
-        _check_k3_at_2560_channels(cuda, *case)
+    for case in GN2560_CASES:
+        _check_gn_dispatch_at_2560_channels(cuda, *case)
     for shape in ((2, 4, 16, 16, 320), (2, 16, 64, 64, 64)):
         _check_gn_dispatch_matches_plain_formulation(cuda, shape)
     _check_wrappers_raise_on_what_kernels_do_not_take(cuda)

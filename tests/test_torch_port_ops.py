@@ -254,7 +254,7 @@ def _check_temporal_wrappers_keep_vdx_preconditions():
 
 
 def _gn_sites(sizes):
-    """{(height, width): {(S, C, G)}}: every GroupNorm that the port's
+    """{(height, width): {(B, S, C, G)}}: every GroupNorm that the port's
     full-width UNet (CFG batch 2 x 16 frames) and VAE decoder (8-frame
     chunks) run at each size, traced on the meta device (shapes only, no
     weights)."""
@@ -266,7 +266,8 @@ def _gn_sites(sizes):
 
     def record(mod, args):
         x = args[0]
-        sites[size].add((math.prod(x.shape[1:-1]), x.shape[-1], mod.num_groups))
+        sites[size].add((x.shape[0], math.prod(x.shape[1:-1]), x.shape[-1],
+                         mod.num_groups))
 
     with torch.device("meta"), torch.inference_mode():
         unet, vae = UNetMotion(UNetMotionConfig()), AutoencoderKL(VAEConfig())
@@ -288,24 +289,27 @@ def _check_gn_gate_covers_the_main_path_shapes():
     512x512, 768x768, 1024x576 and 1024x1024, in bf16 and fp32, is taken
     by K2 or K3 (the shapes traced from the port's own modules), and the
     level-0 resnet, motion, up-block-1 and VAE shapes land on the kernel
-    the dispatch documents."""
+    the dispatch documents: K2 where a thread-block cluster holds a
+    stripe of whole groups with two CTAs an SM, else K3."""
     bf16, fp32 = 2, 4
     assert KG.k2_viable(4096, 320, 32, bf16)           # level-0 resnet GN
+    assert KG.k2_viable(9216, 320, 32, bf16)           # ... at 768: 16 CTAs
+    assert not KG.k2_viable(9216, 960, 32, bf16)       # one CTA an SM: K3
     assert not KG.k2_viable(65536, 320, 32, bf16)      # motion GN ...
     assert KG.k3_viable(65536, 320, 32, bf16)          # ... goes to K3
     assert not KG.k2_viable(262144, 128, 32, bf16)     # VAE GN at 512x512
     assert KG.k3_viable(262144, 128, 32, bf16)
-    # up-block-1 resnet GN: 2560 channels, over K2's slab gate at 768 in
-    # fp32 and at 1024x1024 in bf16, so K3 takes C > 2048
-    assert not KG.k2_viable(576, 2560, 32, fp32)
-    assert not KG.k2_viable(1024, 2560, 32, bf16)
+    # up-block-1 resnet GN: 2560 channels, a one-group stripe of 160 (bf16)
+    # or 320 (fp32) bytes a row, held by a cluster at 768 and 1024x1024
+    assert KG.k2_viable(576, 2560, 32, fp32)
+    assert KG.k2_viable(1024, 2560, 32, bf16)
     assert KG.k3_viable(1024, 2560, 32, bf16)
     n_sites = 0
     sizes = ((512, 512), (768, 768), (576, 1024), (1024, 1024))
     for (height, width), sites in _gn_sites(sizes).items():
-        assert (height * width // 1024, 2560, 32) in sites  # up block 1
+        assert (32, height * width // 1024, 2560, 32) in sites  # up block 1
         n_sites += len(sites)
-        for S, C, G in sites:
+        for B, S, C, G in sites:
             for itemsize in (bf16, fp32):
                 assert (KG.k2_viable(S, C, G, itemsize)
                         or KG.k3_viable(S, C, G, itemsize)), \

@@ -144,6 +144,8 @@
 #include <dlfcn.h>
 #include <stdint.h>
 
+#include "sm90_tma.cuh"  // mbarriers and the tensor-map encoder
+
 namespace {
 
 typedef __nv_bfloat16 bf16;
@@ -184,45 +186,6 @@ struct Cfg {
 };
 
 // ---------------------------------------------------------------- PTX --
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  return done != 0;
-}
-
-// Waits for the phase of `parity` to complete. A wait that outlasts 2^34
-// clocks (seconds; a tile takes microseconds) means a lost load or
-// arrival: it traps, so the launch fails instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try(bar, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try(bar, parity))
-    if (clock64() - t0 > (1ll << 34)) __trap();
-}
 
 // one box of a 4-D tensor map into shared memory, completing on `bar`
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
@@ -1054,26 +1017,6 @@ __device__ __forceinline__ void flash_sm90_body(
 }
 
 // ---------------------------------------------------------------- host --
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// the driver's cuTensorMapEncodeTiled (in the libcuda that the runtime
-// already loaded), looked up once
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* h = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (h == nullptr) h = dlopen("libcuda.so.1", RTLD_NOW);
-    if (h != nullptr)
-      fn = reinterpret_cast<EncodeTiled>(dlsym(h, "cuTensorMapEncodeTiled"));
-  }
-  return fn;
-}
 
 // [B, S, H, D] bf16 at `p` with element strides (sb, ss, sh) as dims
 // (D, H, S, B), box (box_e, 1, rows, 1), zero fill out of bounds. A size-1

@@ -69,13 +69,15 @@ _SIGNATURES = {
     # the same with bf16 (else fp32) before vec: K9, and fp32 K6-K8
     "vdx_temporal_attention_simt": [_P, _P, _P, _P, _I, _I, _I, _I]
     + [_L] * 12 + [_F, _I, _I, _I, _P],
-    # x, scale, bias, y, B, S, C, G, eps, silu, stream
-    "vdx_group_norm_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
-    "vdx_group_norm_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
-    # x, scale, bias, y, partials, B, S, C, G, rows_per_chunk, eps, silu, stream
-    "vdx_group_norm_2phase_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+    # x, scale, bias, y, B, S, C, G, stripe channels, cluster, rows a CTA,
+    # box rows, threads, eps, silu, stream: K2, the one-pass cluster kernel
+    "vdx_group_norm_cluster_f32": [_P, _P, _P, _P] + [_I] * 9 + [_F, _I, _P],
+    "vdx_group_norm_cluster_bf16": [_P, _P, _P, _P] + [_I] * 9 + [_F, _I, _P],
+    # x, scale, bias, y, partials, B, S, C, G, rows_per_chunk, eps, silu,
+    # stream: K3, the streaming kernel
+    "vdx_group_norm_stream_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                                   _I, _P],
-    "vdx_group_norm_2phase_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+    "vdx_group_norm_stream_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                                    _I, _P],
 }
 
