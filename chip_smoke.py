@@ -15,8 +15,11 @@ Phases, one flushed line each with its seconds:
      gives its shape; kernel, plain and library times (CUDA events)
      beside each bound; the 2560-channel GN shapes that the first GN
      dispatch refused ([32,1024,2560] bf16, [32,576,2560] fp32), driven
-     once through ops.groupnorm with the counters reset; then one [gn]
-     line a path (a UNet call, a decode chunk, at 512 and 768): every
+     once through ops.groupnorm with the counters reset; the new sites
+     of phases 14 and 15 (K1 at [64,4096,8,40] and [64,1024,8,80], GN at
+     the batch's UNet and motion shapes and every VAE encoder GN site);
+     then one [gn] line a path (a UNet call, a decode chunk and an encode
+     chunk at 512 and 768, a two-video UNet call at 512): every
      GroupNorm of it through ops.groupnorm with the counters reset, its
      launches against the plan, the summed kernel, bound and
      F.group_norm ms (scripts/bench_gn_torch.py); the timed calls check
@@ -58,6 +61,25 @@ Phases, one flushed line each with its seconds:
      counters reset, then against its plain version, timed beside its
      bound and a library call (SDPA; two matmuls for mxu_only; none for
      noexp)
+ 14. a prompt batch: a second full-width pipeline from the same seed,
+     built with guidance_rescale=0.7 and FreeU at its defaults; two prompts
+     with seeds [1234, 4321], 25 DDIM steps under a per-step guidance
+     schedule of 25 entries (8.5 to 6.5), output_type="device": each
+     video's noise against rng.normal(its seed) bit for bit, one UNet
+     evaluation of the batch (UNet batch 64) split per video against the
+     two single-video evaluations (rel-L2 bar REL_L2_TOL), launches per
+     UNet call against the plan, then the timed call (seconds, s/video,
+     peak memory; counters as in 7)
+ 15. video2video: phase 7's 16 frames at strength 0.6 (15 of the 25 DDIM
+     steps run): one encode chunk on K2/K3 against their plain versions
+     (REL_L2_TOL) with its launches against the plan, then the timed call
+     with the encode's, the denoise loop's and the decode's launches
+     checked
+ 16. the request knobs at 512x512, 6 DDIM steps, latents out: skip mode at
+     threshold 0 (every step evaluated, latents equal to the plain call's)
+     and at a threshold that skips (fewer evaluations), progress called
+     once per evaluation, dispatch_steps=2 and variable_steps=8 equal to
+     the plain call, attn_impl="xla" launching no K1
 Phase 3 also checks the wgmma + TMA pipeline at its edges (Sq and Skv off
 the tiles, Skv under one tile, q/k/v as views into one fused projection,
 rows whose every scaled logit is below -46; every form at each head-dim
@@ -95,8 +117,8 @@ import time
 from functools import partial
 
 # a hang ends with a stack trace well before any outer time limit; the
-# whole run, build included, takes under two minutes on an H100
-HANG_BUDGET_S = 300
+# whole run, build included, takes about three minutes on an H100
+HANG_BUDGET_S = 420
 ROOT = pathlib.Path(__file__).resolve().parent
 # H100 SXM published peaks at 700 W: bf16 dense tensor cores,
 # fp32 outside the tensor cores, HBM3
@@ -124,6 +146,19 @@ SAMPLER_STEPS = 3
 FP32_TOL = 1e-4
 # [B, S, C] of the 2560-channel GN rows (CFG batch 2 x 16 frames)
 GN2560_SHAPES = ((32, 1024, 2560), (32, 576, 2560))
+# phase 14: two prompts with their own seeds and a per-step guidance
+# schedule of 25 entries around 7.5
+BATCH_PROMPTS = (PROMPT, "a red panda eating bamboo in the snow, soft light")
+BATCH_SEEDS = (1234, 4321)
+# phases 14 and 15 hold a path's result against another form of the same
+# computation (the batch split per video against two single-video
+# evaluations, an encode chunk on K2/K3 against their plain versions): the
+# same bf16 weights and inputs, but other kernels or other cuBLAS/cuDNN
+# algorithms round otherwise, and each flip compounds over the network,
+# as in phases 6 and 9 (PERF.md section 2's bar)
+REL_L2_TOL = 5e-2
+V2V_STRENGTH = 0.6  # phase 15: 15 of 25 DDIM steps
+KNOB_STEPS = 6  # phase 16
 # the seeded noise on the card against the CPU: the same int64 threefry
 # bits; the fp32 erfinv polynomial's log1p and sqrt may round differently
 # on the two (a few ulps of values up to ~6, ulp 4.8e-7)
@@ -219,6 +254,9 @@ def check_kernels(dev):
         ("K1", (32, 9216, 8, 40), "768", "level-0 self-attn", True),
         ("K1", (32, 2304, 8, 80), "768", "level-1 self-attn", True),
         ("K4", (32, 576, 8, 160), "768", "level-2 self-attn", False),
+        # a two-prompt batch doubles the UNet batch (phase 14)
+        ("K1", (64, 4096, 8, 40), "batch", "level-0 self-attn, 2 videos", True),
+        ("K1", (64, 1024, 8, 80), "batch", "level-1 self-attn, 2 videos", False),
     )
     static = dict(exp_impl="staticmax")
     for kname, (B, S, H, D), path, site, one_slice in attn_cases:
@@ -250,7 +288,8 @@ def check_kernels(dev):
         label = {"K1": "flash_attention_dt staticmax",
                  "K4": "flash_attention running-max"}[kname]
         rows.append(dict(
-            name=f"{kname} {label} [{B},{S},{H},{D}] ({site}, {path}x{path})",
+            name=f"{kname} {label} [{B},{S},{H},{D}] ({site}, "
+                 f"{'512x512' if path == 'batch' else f'{path}x{path}'})",
             kernel=kname, path=path, stage="denoise", route="cuda",
             source="vdx_torch/csrc/flash_attention_sm90.cu",
             replaces=("vdx/kernels/flash_attention.py:204" if kname == "K1"
@@ -259,8 +298,8 @@ def check_kernels(dev):
             tol=tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
             library="F.scaled_dot_product_attention", bound_ms=b_ms,
             bound_by=b_by, seconds=time.time() - t0,
-            note=("plain_ms: one two-entry slice timed, times 16" if one_slice
-                  else "")))
+            note=(f"plain_ms: one two-entry slice timed, times {B // 2}"
+                  if one_slice else "")))
         del q, k, v, qt, kt, vt, out
         torch.cuda.empty_cache()
 
@@ -300,6 +339,31 @@ def check_kernels(dev):
          "up-block-1 resnet GN-SiLU at 1024x1024", "gn2560", "dispatch"),
         ("K2", GN2560_SHAPES[1], fp32, 1e-5, True,
          "up-block-1 resnet GN-SiLU at 768x768, fp32", "gn2560", "dispatch"),
+        # a two-prompt batch at 512 (phase 14): UNet batch 64, motion GN
+        # batch 4 (K3's chunks a sample: 132, one a CTA of the 528 target)
+        ("K2", (64, 4096, 320), bf16, 1e-5, True,
+         "UNet level-0 resnet GN-SiLU, 2 videos", "batch", "denoise"),
+        ("K3", (4, 65536, 320), bf16, 1e-6, False,
+         "level-0 motion-module GN, 2 videos", "batch", "denoise"),
+        ("K3", (4, 16384, 640), bf16, 1e-6, False,
+         "level-1 motion-module GN, 2 videos", "batch", "denoise"),
+        ("K2", (4, 4096, 1280), bf16, 1e-6, False,
+         "level-2 motion-module GN, 2 videos", "batch", "denoise"),
+        # every GN site of the VAE encoder at 512x512 (phase 15), 8 frames
+        ("K3", (8, 262144, 128), bf16, 1e-6, True,
+         "VAE encoder down-0 GN-SiLU", "v2v", "encode"),
+        ("K3", (8, 65536, 128), bf16, 1e-6, True,
+         "VAE encoder down-1 first GN-SiLU", "v2v", "encode"),
+        ("K3", (8, 65536, 256), bf16, 1e-6, True,
+         "VAE encoder down-1 GN-SiLU", "v2v", "encode"),
+        ("K3", (8, 16384, 256), bf16, 1e-6, True,
+         "VAE encoder down-2 first GN-SiLU", "v2v", "encode"),
+        ("K3", (8, 16384, 512), bf16, 1e-6, True,
+         "VAE encoder down-2 GN-SiLU", "v2v", "encode"),
+        ("K2", (8, 4096, 512), bf16, 1e-6, True,
+         "VAE encoder down-3, mid and out GN-SiLU", "v2v", "encode"),
+        ("K2", (8, 4096, 512), bf16, 1e-6, False,
+         "VAE encoder mid-attention GN", "v2v", "encode"),
     )
     for kname, (B, S, C), dtype, eps, silu, where, path, stage in gn_cases:
         t0 = time.time()
@@ -725,42 +789,59 @@ def read_counters() -> dict:
     return {k: fn.launches for k, fn in counters().items()} | form_counters()
 
 
-def timed_call(pipe, label: str, **kw):
-    """One __call__ with the counters reset just before it and read once
-    more as the VAE decode starts (a Python read, no synchronise), which
-    splits each kernel's launches between the denoise loop and the
-    decode. -> (seconds, frames, latents, launches by stage, peak bytes)."""
+def timed_call(pipe, label: str, prompt=PROMPT, **kw):
+    """One __call__ with the counters reset just before it and read again
+    as the VAE encode ends (video2video) and as the decode starts (Python
+    reads, no synchronise), which split each kernel's launches between the
+    encode, the denoise loop and the decode. The seconds run to a
+    synchronise after the call (output_type="device" returns before the
+    card is done). -> (seconds, frames: video 0 as numpy, or the [B, F,
+    H, W, 3] device tensor, latents finite, launches by stage, peak
+    bytes)."""
     import torch
 
-    at_decode = {}
-    decode = pipe._decode
+    marks = {}
+    decode, encode = pipe._decode, pipe._encode
+
+    def counted_encode(video, chunk):
+        z = encode(video, chunk)
+        marks["encode"] = read_counters()
+        return z
 
     def counted_decode(latents, chunk):
-        at_decode.update(read_counters())
+        marks["decode"] = read_counters()
         return decode(latents, chunk)
 
-    pipe._decode = counted_decode
+    pipe._decode, pipe._encode = counted_decode, counted_encode
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counters()
     t0 = time.time()
-    out = pipe(PROMPT, **kw)
-    frames = out.frames[0]  # numpy: the call has synchronised
+    out = pipe(prompt, **kw)
+    returned = time.time() - t0
+    torch.cuda.synchronize()
     secs = time.time() - t0
     launches = read_counters()
-    del pipe._decode
-    by_stage = {"denoise": dict(at_decode),
-                "decode": {k: n - at_decode[k] for k, n in launches.items()}}
+    del pipe._decode, pipe._encode
+    enc = marks.get("encode", dict.fromkeys(launches, 0))
+    by_stage = {"encode": enc,
+                "denoise": {k: marks["decode"][k] - enc[k] for k in launches},
+                "decode": {k: n - marks["decode"][k] for k, n in launches.items()}}
     peak = torch.cuda.max_memory_allocated()
     lat_finite = bool(torch.isfinite(out.latents).all())
+    frames = out.frames if torch.is_tensor(out.frames) else out.frames[0]
+    n_frames = math.prod(frames.shape[:-3])  # [B, F] on the card, [F] numpy
     log(f"[{label}] {kw['num_inference_steps']} "
         f"{(kw.get('scheduler') or pipe.scheduler).upper()} steps + decode: "
-        f"{secs:.3f}s frames/s={frames.shape[0] / secs:.4f} "
+        f"{secs:.3f}s (returned after {returned:.3f}s) "
+        f"frames/s={n_frames / secs:.4f} "
         f"max_memory_allocated={peak} ({peak / 2**30:.2f} GiB) "
-        f"launches={launches} denoise={by_stage['denoise']} "
-        f"decode={by_stage['decode']} frames {frames.shape} {frames.dtype} "
+        f"launches={launches} encode={by_stage['encode']} "
+        f"denoise={by_stage['denoise']} "
+        f"decode={by_stage['decode']} frames {tuple(frames.shape)} {frames.dtype} "
         f"min={int(frames.min())} max={int(frames.max())} "
-        f"mean={float(frames.mean()):.2f} latents_finite={lat_finite}")
+        f"mean={float(frames.float().mean() if torch.is_tensor(frames) else frames.mean()):.2f} "
+        f"latents_finite={lat_finite}")
     return secs, frames, lat_finite, by_stage, peak
 
 
@@ -873,48 +954,58 @@ def drive_gn2560(dev) -> dict:
 
 
 def check_gn_sites(dev) -> dict:
-    """Every GroupNorm of one UNet call (CFG batch 2 x 16 frames) and one
-    8-frame decode chunk at 512x512 and 768x768, traced on the meta device
-    (scripts/bench_gn_torch.py), each driven through ops.groupnorm as
-    often as the path runs it with the GN counters reset: one [gn] line a
-    path with the launches (checked against the launch plan, kernels
-    .groupnorm.gn_plan), the summed kernel ms, the summed bound and the
-    summed F.group_norm (+ F.silu) ms. -> {(size, "unet" or "decode"):
-    launches by counter}"""
+    """Every GroupNorm of one UNet call (CFG batch 2 x 16 frames), one
+    8-frame decode chunk and one 8-frame encode chunk at 512x512 and
+    768x768, and of one UNet call of a two-prompt batch at 512x512 (CFG
+    batch 4), traced on the meta device (scripts/bench_gn_torch.py), each
+    driven through ops.groupnorm as often as the path runs it with the GN
+    counters reset: one [gn] line a path with the launches (checked
+    against the launch plan, kernels.groupnorm.gn_plan), the summed kernel
+    ms, the summed bound and the summed F.group_norm (+ F.silu) ms.
+    -> {(size or "batch", "unet", "decode" or "encode"): launches by
+    counter}"""
     import torch
 
     from vdx_torch.kernels import groupnorm as KG
 
     bench = load_script("bench_gn_torch")
     expected = {}
-    for size in (512, 768):
-        for path, sites in bench.gn_sites(size, size).items():
+    for size, videos in ((512, 1), (768, 1), (512, 2)):
+        for path, sites in bench.gn_sites(size, size, videos=videos).items():
+            if videos > 1 and path != "unet":  # chunks do not see the batch
+                continue
             t0 = time.time()
             want = {"K2": 0, "K3": 0}
             for (B, S, C, G, _, _), n in sites.items():
                 want[KG.gn_plan(B, S, C, G, 2).route] += n
             launches = bench.drive(sites, dev)
             sums = bench.path_sums(bench.time_sites(sites, dev))
-            log(f"[gn] {path} {size}x{size}: {sums['sites']} GroupNorms "
+            what = f"{path} {size}x{size}" + (f", {videos} videos" if videos > 1
+                                               else "")
+            log(f"[gn] {what}: {sums['sites']} GroupNorms "
                 f"through ops.groupnorm, launches {launches} (plan {want}) "
                 f"kernel_ms={sums['ms']:.4f} bound_ms={sums['bound_ms']:.4f} "
                 f"library_ms={sums['library_ms']:.4f} (F.group_norm + F.silu "
                 f"where the site has it; each site's ms times its count) "
                 f"({time.time() - t0:.1f}s)")
             if launches != want:
-                raise SystemExit(f"[gn] {path} {size}: launches {launches}, "
+                raise SystemExit(f"[gn] {what}: launches {launches}, "
                                  f"the plan says {want}")
-            expected[(str(size), path)] = want
+            expected[("batch" if videos > 1 else str(size), path)] = want
             torch.cuda.empty_cache()
+    expected[("batch", "decode")] = expected[("512", "decode")]
     return expected
 
 
-def check_gn_launches(by_stage: dict, per_call: dict, size: str,
-                      chunks: int) -> None:
+def check_gn_launches(by_stage: dict, per_call: dict, size: str, steps: int,
+                      chunks: int, encoded: bool = False) -> None:
     """A timed call's GroupNorm launches: the plan's K2 and K3 counts per
-    UNet call times the steps, per decode chunk times the chunks."""
-    for stage, times, path in (("denoise", TIMED_STEPS, "unet"),
-                               ("decode", chunks, "decode")):
+    UNet call times the steps, per decode (and encode) chunk times the
+    chunks."""
+    stages = [("denoise", steps, "unet"), ("decode", chunks, "decode")]
+    if encoded:
+        stages.append(("encode", chunks, "encode"))
+    for stage, times, path in stages:
         want = {k: n * times for k, n in per_call[(size, path)].items()}
         got = {k: by_stage[stage][k] for k in want}
         if got != want:
@@ -1242,6 +1333,188 @@ def check_forms(dev):
     return rows, runs
 
 
+def rel_l2(a, b) -> float:
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def run_batch(pipe2, gn_per_call) -> dict:
+    """Phase 14: a two-prompt batch on ``pipe2`` (guidance_rescale 0.7,
+    FreeU) with per-video seeds, a per-step guidance schedule and frames
+    left on the card."""
+    import numpy as np
+    import torch
+
+    from vdx_torch.core import rng
+
+    t0 = time.time()
+    schedule = np.linspace(8.5, 6.5, TIMED_STEPS, dtype=np.float32)
+    w = dict(WORKLOAD, seed=list(BATCH_SEEDS), output_type="device",
+             scheduler="ddim")
+    F_, H, W = (WORKLOAD[k] for k in ("num_frames", "height", "width"))
+    shape = (2, F_, H // 8, W // 8, 4)
+    noise = pipe2.initial_noise(shape, list(BATCH_SEEDS))
+    per_seed = [torch.equal(noise[b], rng.normal(s, shape[1:], noise.device))
+                for b, s in enumerate(BATCH_SEEDS)]
+    pipe2(list(BATCH_PROMPTS), num_inference_steps=2, **w)  # warm-up
+    with torch.inference_mode():
+        ctx = pipe2.encode_prompt(list(BATCH_PROMPTS), WORKLOAD["negative_prompt"])
+        tables = pipe2._get_tables("ddim", TIMED_STEPS)
+        lat = noise * tables.init_noise_sigma
+        t_b = tables.timesteps[0]
+        reset_counters()
+        eps = pipe2.unet(torch.cat([lat, lat]), t_b.expand(4), ctx)
+        launches = read_counters()
+        # video b's (uncond, cond) rows against its own CFG pair alone
+        rels = [rel_l2(eps[[b, 2 + b]],
+                       pipe2.unet(torch.cat([lat[b:b + 1]] * 2), t_b.expand(2),
+                                  ctx[[b, 2 + b]]))
+                for b in range(2)]
+    per_call = {"K1": 10, "K4": 0} | gn_per_call[("batch", "unet")]
+    log(f"[batch] noise of video b == rng.normal(seed b) bit for bit: "
+        f"{per_seed}; one UNet evaluation of the batch (CFG batch 4, UNet "
+        f"batch 64) split per video against its two-row evaluation: rel_l2 "
+        f"{rels[0]:.3e} / {rels[1]:.3e} (bar {REL_L2_TOL}) launches per UNet "
+        f"call {launches} (plan {per_call}) ({time.time() - t0:.1f}s)")
+    if not all(per_seed):
+        raise SystemExit("batch: a video's noise is not its seed's draw")
+    if not max(rels) < REL_L2_TOL:
+        raise SystemExit(f"batch: a video of the batch differs from its "
+                         f"single evaluation: {rels}")
+    bad = {k: n for k, n in per_call.items() if launches[k] != n}
+    if bad:
+        raise SystemExit(f"batch: launches per UNet call {launches}, "
+                         f"expected {per_call}")
+    torch.cuda.empty_cache()
+    secs, frames, lat_finite, by_stage, peak = timed_call(
+        pipe2, "batch", prompt=list(BATCH_PROMPTS),
+        num_inference_steps=TIMED_STEPS, **dict(w, guidance_scale=schedule))
+    chunks = 2 * WORKLOAD["num_frames"] // WORKLOAD["decode_chunk"]
+    if by_stage["denoise"]["K1"] != 10 * TIMED_STEPS or by_stage["decode"]["K1"]:
+        raise SystemExit(f"batch: launches {by_stage}, expected K1 "
+                         f"{10 * TIMED_STEPS} times in the denoise loop")
+    check_no_forms(by_stage, "batch")
+    check_gn_launches(by_stage, gn_per_call, "batch", TIMED_STEPS, chunks)
+    ok = (frames.device.type == pipe2.device.type == "cuda"
+          and frames.dtype == torch.uint8
+          and tuple(frames.shape) == (2, F_, H, W, 3) and lat_finite
+          and all(int(frames[b].min()) < int(frames[b].max()) for b in range(2)))
+    log(f"[batch] 2 videos, {TIMED_STEPS} DDIM steps, guidance schedule "
+        f"{float(schedule[0])}..{float(schedule[-1])}, guidance_rescale "
+        f"{pipe2.guidance_rescale}, FreeU {pipe2.unet.freeu}: {secs:.3f}s, "
+        f"{secs / 2:.3f} s/video, max_memory_allocated={peak} "
+        f"({peak / 2**30:.2f} GiB), frames {frames.device} {frames.dtype} "
+        f"{tuple(frames.shape)}")
+    if not ok:
+        raise SystemExit(f"batch: frames are not a non-constant CUDA uint8 "
+                         f"{[2, F_, H, W, 3]} tensor, or latents not finite")
+    return dict(secs=secs, by_stage=by_stage, peak=peak, frames=2 * F_,
+                steps=TIMED_STEPS, chunks=chunks, videos=2)
+
+
+def run_video2video(pipe, clip, dev, gn_per_call) -> dict:
+    """Phase 15: phase 7's 16 frames back in at strength 0.6 (15 of 25
+    DDIM steps run), with one encode chunk held against the plain K2/K3."""
+    import torch
+
+    t0 = time.time()
+    w = dict(WORKLOAD, scheduler="ddim", video=clip, strength=V2V_STRENGTH)
+    pipe(PROMPT, **dict(w, num_inference_steps=2))  # warm-up: 1 step
+    gn_want = gn_per_call[("512", "encode")]
+    with torch.inference_mode():
+        x = torch.as_tensor(clip[:WORKLOAD["decode_chunk"]], device=dev)
+        x = x.float() / 127.5 - 1.0
+        reset_counters()
+        z = pipe.vae.encode(x)
+        launches = read_counters()
+        with plain_versions("K2/K3"):
+            rel = rel_l2(z, pipe.vae.encode(x))
+    log(f"[v2v] one encode chunk {list(x.shape)} -> {list(z.shape)}: rel_l2"
+        f"(K2/K3 vs plain)={rel:.3e} (bar {REL_L2_TOL}) GN launches "
+        f"K2={launches['K2']} K3={launches['K3']} (plan {gn_want}) "
+        f"({time.time() - t0:.1f}s)")
+    if not rel < REL_L2_TOL or {k: launches[k] for k in gn_want} != gn_want:
+        raise SystemExit("v2v: the encode chunk disagrees with the plain "
+                         "versions or with the launch plan")
+    torch.cuda.empty_cache()
+    secs, frames, lat_finite, by_stage, peak = timed_call(
+        pipe, "video2video", num_inference_steps=TIMED_STEPS, **w)
+    steps = min(max(int(TIMED_STEPS * V2V_STRENGTH), 1), TIMED_STEPS)
+    chunks = WORKLOAD["num_frames"] // WORKLOAD["decode_chunk"]
+    if by_stage["denoise"]["K1"] != 10 * steps or by_stage["decode"]["K1"] \
+            or by_stage["encode"]["K1"]:
+        raise SystemExit(f"v2v: launches {by_stage}, expected K1 {10 * steps} "
+                         "times in the denoise loop only")
+    check_no_forms(by_stage, "video2video")
+    check_gn_launches(by_stage, gn_per_call, "512", steps, chunks, encoded=True)
+    check_frames(frames, clip.shape, lat_finite, "video2video")
+    return dict(secs=secs, by_stage=by_stage, peak=peak, frames=clip.shape[0],
+                steps=steps, chunks=chunks)
+
+
+def run_knobs(pipe) -> dict:
+    """Phase 16: skip mode, dispatch segments, variable_steps, progress and
+    attn_impl at 512x512, KNOB_STEPS DDIM steps, latents out."""
+    import torch
+
+    from vdx_torch.pipelines import AnimateDiffPipeline, SkipConfig
+
+    t0 = time.time()
+    w = dict(WORKLOAD, scheduler="ddim", num_inference_steps=KNOB_STEPS,
+             output_type="latent")
+
+    def sibling(**kw):
+        """A pipeline with other knobs over ``pipe``'s weights."""
+        p = AnimateDiffPipeline(pipe.unet.config, pipe.vae.config,
+                                pipe.text_encoder.config, pipe.tokenizer,
+                                pipe.policy, device=pipe.device, **kw)
+        if "attn_impl" in kw:  # the UNet's own attention modules change
+            p.unet.load_state_dict(pipe.unet.state_dict())
+        else:
+            p.unet = pipe.unet
+        p.vae, p.text_encoder = pipe.vae, pipe.text_encoder
+        return p
+
+    calls = []
+    plain = pipe(PROMPT, **w).latents
+    exact = sibling(skip=SkipConfig(threshold=0.0),
+                    progress=lambda i, n: calls.append(i))(PROMPT, **w)
+    res = {"skip0_equal": torch.equal(exact.latents, plain),
+           "skip0_n_evals": int(exact.n_evals), "skip0_progress": len(calls)}
+    calls.clear()
+    # a threshold no drift between the forced steps 0 and 5 reaches
+    skipping = sibling(skip=SkipConfig(threshold=10.0, warmup_steps=1,
+                                       cooldown_steps=1),
+                       progress=lambda i, n: calls.append(i))(PROMPT, **w)
+    res |= {"skip_n_evals": int(skipping.n_evals), "skip_progress": len(calls),
+            "skip_finite": bool(torch.isfinite(skipping.latents).all())}
+    res["dispatch2_equal"] = torch.equal(
+        pipe(PROMPT, dispatch_steps=2, **w).latents, plain)
+    res["variable8_equal"] = torch.equal(
+        sibling(variable_steps=8)(PROMPT, **w).latents, plain)
+    xla = sibling(attn_impl="xla")
+    torch.cuda.synchronize()
+    reset_counters()
+    lat = xla(PROMPT, **w).latents
+    launches = read_counters()
+    res |= {"xla_K1": launches["K1"], "xla_K4": launches["K4"],
+            "xla_forms": sum(form_counters().values()),
+            "xla_rel_l2_vs_flash": rel_l2(lat, plain),
+            "xla_finite": bool(torch.isfinite(lat).all())}
+    del xla, lat
+    torch.cuda.empty_cache()
+    log(f"[knobs] {KNOB_STEPS} DDIM steps at 512x512: {res} "
+        f"({time.time() - t0:.1f}s)")
+    ok = (res["skip0_equal"] and res["skip0_n_evals"] == KNOB_STEPS
+          == res["skip0_progress"] and res["skip_n_evals"] < KNOB_STEPS
+          and res["skip_n_evals"] == res["skip_progress"] and res["skip_finite"]
+          and res["dispatch2_equal"] and res["variable8_equal"]
+          and res["xla_K1"] == res["xla_K4"] == res["xla_forms"] == 0
+          and res["xla_finite"])
+    if not ok:
+        raise SystemExit(f"knobs: {res}")
+    return res
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(HANG_BUDGET_S, exit=True)
     t_start = time.time()
@@ -1344,10 +1617,12 @@ def main() -> int:
                          "times in the denoise loop (10 per UNet call), none after")
     check_no_forms(by_stage, "512x512 DDIM")
     chunks = WORKLOAD["num_frames"] // WORKLOAD["decode_chunk"]
-    check_gn_launches(by_stage, gn_per_call, "512", chunks)
+    check_gn_launches(by_stage, gn_per_call, "512", TIMED_STEPS, chunks)
     check_frames(frames, (16, 512, 512, 3), lat_finite, "512x512 DDIM")
     paths = {"512": dict(secs=secs, by_stage=by_stage, peak=peak,
-                         frames=frames.shape[0])}
+                         frames=frames.shape[0], steps=TIMED_STEPS,
+                         chunks=chunks)}
+    clip512 = frames  # phase 15's input
 
     # 8. warm-up of the 768x768 path (the pipeline's default sampler)
     t0 = time.time()
@@ -1372,10 +1647,11 @@ def main() -> int:
         raise SystemExit(f"launches {by_stage}: expected {want} in the denoise "
                          "loop (K1 10, K4 5 per UNet call), none in the decode")
     check_no_forms(by_stage, "768x768 Euler")
-    check_gn_launches(by_stage, gn_per_call, "768", chunks)
+    check_gn_launches(by_stage, gn_per_call, "768", TIMED_STEPS, chunks)
     check_frames(frames, (16, 768, 768, 3), lat_finite, "768x768 Euler")
     paths["768"] = dict(secs=secs, by_stage=by_stage, peak=peak,
-                        frames=frames.shape[0])
+                        frames=frames.shape[0], steps=TIMED_STEPS,
+                        chunks=chunks)
     del frames
     torch.cuda.empty_cache()
 
@@ -1414,14 +1690,34 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"[forms] all within tolerance ({time.time() - t0:.1f}s)")
 
+    # 14. a two-prompt batch on a second full-width pipeline from the same
+    # seed, with guidance_rescale and FreeU, frames left on the card
+    from vdx_torch.nn.freeu import FreeUConfig
+
+    t0 = time.time()
+    pipe2 = AnimateDiffPipeline.with_random_params(
+        seed=0, policy=BF16_POLICY, guidance_rescale=0.7, freeu=FreeUConfig())
+    paths["batch"] = run_batch(pipe2, gn_per_call)
+    del pipe2
+    torch.cuda.empty_cache()
+    log(f"[batch] phase done ({time.time() - t0:.1f}s)")
+
+    # 15. video2video: phase 7's frames at strength 0.6
+    t0 = time.time()
+    paths["v2v"] = run_video2video(pipe, clip512, dev, gn_per_call)
+    torch.cuda.empty_cache()
+    log(f"[v2v] phase done ({time.time() - t0:.1f}s)")
+
+    # 16. skip mode, dispatch segments, variable_steps, progress, attn_impl
+    knobs = run_knobs(pipe)
+
     # Counts are per kernel at every shape, within the row's stage of its
     # path's run: the denoise loop of a timed call (per step), its VAE
-    # decode (per chunk), the GN dispatch at 2560 channels, the temporal
-    # sites (per site), or the micro-benchmark's loop of its form and shape.
+    # encode and decode (per chunk), the GN dispatch at 2560 channels, the
+    # temporal sites (per site), or the micro-benchmark's loop of its form
+    # and shape.
     runs.update({p: d["by_stage"] for p, d in paths.items()})
-    per = {"denoise": ("launches_per_step", TIMED_STEPS),
-           "decode": ("launches_per_chunk", chunks),
-           "sites": ("launches_per_site", len(t_rows) // len(TEMPORAL))}
+    n_sites = len(t_rows) // len(TEMPORAL)
     for r in rows:
         if runs[r["path"]][r["stage"]][r["kernel"]] == 0:
             raise SystemExit(f"{r['name']} never launched in its stage of its "
@@ -1430,8 +1726,12 @@ def main() -> int:
     def row_launches(r):
         n = runs[r["path"]][r["stage"]][r["kernel"]]
         out = {"launches": n, "path": r["path"], "stage": r["stage"]}
-        if r["stage"] in per:
-            out[per[r["stage"]][0]] = n / per[r["stage"]][1]
+        if r["stage"] == "denoise":
+            out["launches_per_step"] = n / paths[r["path"]]["steps"]
+        elif r["stage"] in ("decode", "encode"):
+            out["launches_per_chunk"] = n / paths[r["path"]]["chunks"]
+        elif r["stage"] == "sites":
+            out["launches_per_site"] = n / n_sites
         return out
 
     summary = {"kernels": [
@@ -1447,10 +1747,11 @@ def main() -> int:
         for r in rows
     ], "temporal_per_unet_call_ms": temporal_per_call, "paths": {
         p: {"timed_call_s": d["secs"], "frames_per_s": d["frames"] / d["secs"],
-            "steps": TIMED_STEPS, "max_memory_allocated": d["peak"],
+            "steps": d["steps"], "max_memory_allocated": d["peak"],
             "launches_by_stage": d["by_stage"]}
+        | ({"s_per_video": d["secs"] / d["videos"]} if "videos" in d else {})
         for p, d in paths.items()},
-        "samplers": sampler_runs,
+        "samplers": sampler_runs, "knobs": knobs,
         # every flash attention counter (kernels.flash_attention
         # .launch_counts) with its launches at phase 3's edges
         "edge_launches": edge_launches,

@@ -5,13 +5,15 @@
                                       [--root DIR] [--json FILE]
 
 Traces every GroupNorm that one full-width UNet call (CFG batch 2 x 16
-frames) and one 8-frame VAE decode chunk run at each size, on the meta
-device (shapes only), then drives each distinct site on the card through
+frames), one 8-frame VAE decode chunk and one 8-frame VAE encode chunk
+(video2video) run at each size, on the meta device (shapes only), then
+drives each distinct site on the card through
 ``ops.groupnorm`` (the dispatch the models call, K2 or K3 by the launch
 plan) on seeded bf16 inputs, and prints per site and per path (the UNet
 call, the decode chunk) the kernel ms, the bytes bound (x read once, y
 written once, at 3.35 TB/s) and ``F.group_norm`` (+ ``F.silu``) on the
-same [B, C, S] view, each summed over the site's count. ``--kernels``
+same [B, C, S] view, each summed over the site's count (a path: the UNet
+call, the decode chunk, the encode chunk). ``--kernels``
 also times K2 (``fused_group_norm``) and K3 (``fused_group_norm_2phase``)
 on their own at every site each takes. ``--root DIR`` imports
 ``vdx_torch`` from DIR (another checkout, e.g. the parent commit's, so
@@ -35,17 +37,20 @@ REPS = 20
 TRIALS = 3
 
 
-def gn_sites(height: int, width: int, frames: int = 16, chunk: int = 8):
-    """{"unet": Counter, "decode": Counter} of (B, S, C, G, eps, silu)
-    over every GroupNorm of one UNet call (CFG batch 2) and one decode
-    chunk at height x width, traced on the meta device."""
+def gn_sites(height: int, width: int, frames: int = 16, chunk: int = 8,
+             videos: int = 1):
+    """{"unet": Counter, "decode": Counter, "encode": Counter} of
+    (B, S, C, G, eps, silu) over every GroupNorm of one UNet call (CFG
+    batch 2 x ``videos``), one decode chunk and one encode chunk at
+    height x width, traced on the meta device. (A checkout whose VAE has
+    no encoder gives no "encode" path.)"""
     import torch
 
     from vdx_torch.models.unet_motion import UNetMotion, UNetMotionConfig
     from vdx_torch.models.vae import AutoencoderKL, VAEConfig
     from vdx_torch.nn.resnet import GroupNormModule
 
-    sites = {"unet": collections.Counter(), "decode": collections.Counter()}
+    sites = collections.defaultdict(collections.Counter)
     where = []
 
     def record(mod, args):
@@ -61,11 +66,14 @@ def gn_sites(height: int, width: int, frames: int = 16, chunk: int = 8):
                 if isinstance(m, GroupNormModule):
                     m.register_forward_pre_hook(record)
         where.append("unet")
-        unet(torch.empty(2, frames, h, w, 4), torch.empty(2),
-             torch.empty(2, 77, 768))
+        unet(torch.empty(2 * videos, frames, h, w, 4), torch.empty(2 * videos),
+             torch.empty(2 * videos, 77, 768))
         where.append("decode")
         vae.decode(torch.empty(chunk, h, w, 4))
-    return sites
+        if hasattr(vae, "encode"):
+            where.append("encode")
+            vae.encode(torch.empty(chunk, height, width, 3))
+    return dict(sites)
 
 
 def gpu_ms(fn, reps: int = REPS, trials: int = TRIALS) -> float:

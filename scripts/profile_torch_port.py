@@ -3,12 +3,14 @@
 
     python3 scripts/profile_torch_port.py                      # 512x512, DDIM
     python3 scripts/profile_torch_port.py --size 768 --scheduler euler
+    python3 scripts/profile_torch_port.py --video2video         # + an encode chunk
 
 Builds the SD-1.5-width pipeline (bf16, random weights from seed 0), warms
 it up, then traces with ``torch.profiler`` one denoising step of the given
 sampler (one CFG-batched UNet call over 2 x 16 frames at size/8 latents)
-and one VAE decode chunk (8 frames to size x size). Prints, per phase, the
-wall time, the
+and one VAE decode chunk (8 frames to size x size); with
+``--video2video`` also one VAE encode chunk (8 frames of size x size, the
+video2video path's encoder). Prints, per phase, the wall time, the
 summed device-kernel time by category and the device idle share
 (1 - kernel time / wall time), then the top kernels by device time. The
 categories are read off the kernel names.
@@ -88,6 +90,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--size", type=int, default=512, help="frame height and width")
     ap.add_argument("--scheduler", default="ddim")
+    ap.add_argument("--video2video", action="store_true",
+                    help="also trace one VAE encode chunk")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
     import torch
@@ -117,6 +121,7 @@ def main() -> int:
         state = (get_sampler(args.scheduler).init_state(lat)
                  if is_multistep(args.scheduler) else None)
         z = noise[0, :8]
+        frames = torch.rand((8, args.size, args.size, 3), device="cuda") * 2 - 1
 
         def step():
             pipe.denoise_step(lat, 0, ctx, 7.5, True, args.scheduler, tables,
@@ -125,11 +130,17 @@ def main() -> int:
         def decode():
             pipe.vae.decode(z)
 
+        def encode():
+            pipe.vae.encode(frames)
+
+        phases = [(step, "denoise step"), (decode, "decode chunk")]
+        if args.video2video:
+            phases.append((encode, "encode chunk"))
         for _ in range(2):  # warm-up: kernel build, cuDNN plans, allocator
-            step()
-            decode()
-        profile(step, "denoise step")
-        profile(decode, "decode chunk")
+            for fn, _ in phases:
+                fn()
+        for fn, label in phases:
+            profile(fn, label)
     return 0
 
 

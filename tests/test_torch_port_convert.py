@@ -4,7 +4,7 @@ vdx parameters (numpy, seeded, laid out by vdx's own init shapes) go
 through vdx_torch.core.convert.params_from_jax into the port's
 diffusers-named state_dict and back through vdx.core.convert's
 ``convert_checkpoint``; the result must equal the original tree leaf for
-leaf (unet, the VAE decoder, text). This holds the port's copied rule
+leaf (unet, the VAE encoder and decoder, text). This holds the port's copied rule
 tables to the reference's. The port modules' own state_dicts must have
 exactly the converter's keys and shapes.
 """
@@ -79,14 +79,11 @@ def _check_round_trip(component):
     params, report = VC.convert_checkpoint(sd, template, rules, strict=False)
     assert not report["shape_errors"] and not report["unused_checkpoint_keys"]
     back = VC.flatten_params(params)
-    # every leaf the port carries comes back bit for bit; only vdx's VAE
-    # encoder (not ported yet) is left unconverted
-    carried = [k for k in flat if not (component == "vae" and k.startswith("encoder/"))]
-    assert len(carried) == len(sd)
-    for k in carried:
+    # every leaf comes back bit for bit, the VAE encoder's included
+    assert len(flat) == len(sd)
+    for k in flat:
         np.testing.assert_array_equal(np.asarray(back[k]), flat[k], err_msg=k)
-    missing = [m for m in report["missing"] if "encoder/" not in m]
-    assert not missing, missing[:5]
+    assert not report["missing"], report["missing"][:5]
 
 
 def _check_module_keys(component):

@@ -2,8 +2,8 @@
 
 * The launch plan (``kernels.groupnorm.gn_plan``: route, stripe, cluster,
   rows a CTA, shared bytes) at every GroupNorm site of the SD-1.5
-  AnimateDiff UNet and VAE decoder at 512x512, 768x768, 1024x576 and
-  1024x1024, in bf16 and fp32: stripes are whole groups on 16-byte
+  AnimateDiff UNet, VAE decoder and VAE encoder at 512x512, 768x768,
+  1024x576 and 1024x1024, in bf16 and fp32: stripes are whole groups on 16-byte
   boundaries, the shared bytes fit 227 KB, the cluster is within its
   limit, and the 512 and 768 paths route as ``chip_smoke.py`` checks on
   the card (STREAMED below).
@@ -165,13 +165,17 @@ def _check_plan(B, S, C, G, itemsize):
 # 1 ([2, 16 * hw, 320], [2, 4 * hw, 640]) and the VAE GN but its first
 # ([8, hw, 512] at 512) hold no stripe with two CTAs an SM, nor does the
 # 768 up-block-3 resnet GN's 960 channels (a 2.2 MB stripe: 16 CTAs, one
-# an SM), where K3 measured faster on an H100.
+# an SM), where K3 measured faster on an H100. The VAE encoder's GN sites
+# above the lowest level stream too ([8, 4 * hw, 128] and [8, hw, 256] are
+# the encoder's own shapes).
 STREAMED = {
     512: {(2, 65536, 320), (2, 16384, 640), (8, 16384, 512), (8, 65536, 256),
-          (8, 65536, 512), (8, 262144, 128), (8, 262144, 256)},
+          (8, 65536, 512), (8, 262144, 128), (8, 262144, 256),
+          (8, 16384, 256), (8, 65536, 128)},
     768: {(2, 147456, 320), (2, 36864, 640), (32, 9216, 960), (8, 9216, 512),
           (8, 36864, 512), (8, 147456, 256), (8, 147456, 512),
-          (8, 589824, 128), (8, 589824, 256)},
+          (8, 589824, 128), (8, 589824, 256), (8, 36864, 256),
+          (8, 147456, 128)},
 }
 
 

@@ -583,6 +583,7 @@ def test_port_imports_no_jax_or_vdx():
     files = sorted((ROOT / "vdx_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_torch_port.py",
         ROOT / "scripts" / "bench_attn_torch.py",
+        ROOT / "scripts" / "bench_gn_torch.py",
         ROOT / "scripts" / "sass_forms.py"]
     assert len(files) > 10
     bad = []

@@ -255,9 +255,9 @@ def _check_temporal_wrappers_keep_vdx_preconditions():
 
 def _gn_sites(sizes):
     """{(height, width): {(B, S, C, G)}}: every GroupNorm that the port's
-    full-width UNet (CFG batch 2 x 16 frames) and VAE decoder (8-frame
-    chunks) run at each size, traced on the meta device (shapes only, no
-    weights)."""
+    full-width UNet (CFG batch 2 x 16 frames), VAE decoder and VAE encoder
+    (8-frame chunks) run at each size, traced on the meta device (shapes
+    only, no weights)."""
     from vdx_torch.models.unet_motion import UNetMotion, UNetMotionConfig
     from vdx_torch.models.vae import AutoencoderKL, VAEConfig
     from vdx_torch.nn.resnet import GroupNormModule
@@ -281,16 +281,18 @@ def _gn_sites(sizes):
             unet(torch.empty(2, 16, h, w, 4), torch.empty(2),
                  torch.empty(2, 77, 768))
             vae.decode(torch.empty(8, h, w, 4))
+            vae.encode(torch.empty(8, size[0], size[1], 3))
     return sites
 
 
 def _check_gn_gate_covers_the_main_path_shapes():
-    """Every GN site of the SD-1.5 AnimateDiff UNet and VAE decoder at
-    512x512, 768x768, 1024x576 and 1024x1024, in bf16 and fp32, is taken
-    by K2 or K3 (the shapes traced from the port's own modules), and the
-    level-0 resnet, motion, up-block-1 and VAE shapes land on the kernel
-    the dispatch documents: K2 where a thread-block cluster holds a
-    stripe of whole groups with two CTAs an SM, else K3."""
+    """Every GN site of the SD-1.5 AnimateDiff UNet, VAE decoder and VAE
+    encoder at 512x512, 768x768, 1024x576 and 1024x1024, in bf16 and
+    fp32, is taken by K2 or K3 (the shapes traced from the port's own
+    modules), and the level-0 resnet, motion, up-block-1 and VAE shapes
+    land on the kernel the dispatch documents: K2 where a thread-block
+    cluster holds a stripe of whole groups with two CTAs an SM, else
+    K3."""
     bf16, fp32 = 2, 4
     assert KG.k2_viable(4096, 320, 32, bf16)           # level-0 resnet GN
     assert KG.k2_viable(9216, 320, 32, bf16)           # ... at 768: 16 CTAs

@@ -3,7 +3,7 @@
 The port's modules use diffusers/transformers state_dict names and
 torch-native shapes, so vdx's conversion rules (vdx/core/convert.py) name
 the bridge. This module keeps its own copy of the rule tables it needs —
-UNetMotion, the AutoencoderKL decoder and the CLIP text tower — and runs
+UNetMotion, the AutoencoderKL and the CLIP text tower — and runs
 them backwards: :func:`params_from_jax` turns a flattened vdx parameter
 tree (numpy leaves) into a state_dict for the port's module.
 
@@ -178,7 +178,7 @@ def unet_motion_rules(config) -> Rules:
 
 
 # ----------------------------------------------------------------------
-# AutoencoderKL (decoder half)
+# AutoencoderKL
 # ----------------------------------------------------------------------
 
 
@@ -214,17 +214,39 @@ def _vae_attn_rules(prefix: str, hf_prefix: str) -> Rules:
 
 
 def vae_rules(config) -> Rules:
-    """vdx AutoencoderKL decoder path -> diffusers AutoencoderKL key. The
-    encoder's rules come with video2video (ROADMAP Queue 1 item 10)."""
+    """vdx AutoencoderKL path -> diffusers AutoencoderKL key: the encoder
+    (vdx keeps quant_conv inside it) and the decoder."""
     n = len(config.block_out_channels)
     L = config.layers_per_block
-    d = "decoder"
+    e = "encoder"
     rules: Rules = {
+        f"{e}/conv_in/kernel": ("encoder.conv_in.weight", t_conv),
+        f"{e}/conv_in/bias": ("encoder.conv_in.bias", t_id),
+    }
+    for bi in range(n):
+        for li in range(L):
+            rules.update(_vae_resnet_rules(
+                f"{e}/down_{bi}_{li}", f"encoder.down_blocks.{bi}.resnets.{li}"))
+        if bi < n - 1:
+            hf = f"encoder.down_blocks.{bi}.downsamplers.0.conv"
+            rules[f"{e}/down_{bi}_downsample/kernel"] = (f"{hf}.weight", t_conv)
+            rules[f"{e}/down_{bi}_downsample/bias"] = (f"{hf}.bias", t_id)
+    rules.update(_vae_resnet_rules(f"{e}/mid/resnet_0", "encoder.mid_block.resnets.0"))
+    rules.update(_vae_resnet_rules(f"{e}/mid/resnet_1", "encoder.mid_block.resnets.1"))
+    rules.update(_vae_attn_rules(f"{e}/mid/attn", "encoder.mid_block.attentions.0"))
+    rules[f"{e}/conv_norm_out/scale"] = ("encoder.conv_norm_out.weight", t_id)
+    rules[f"{e}/conv_norm_out/bias"] = ("encoder.conv_norm_out.bias", t_id)
+    rules[f"{e}/conv_out/kernel"] = ("encoder.conv_out.weight", t_conv)
+    rules[f"{e}/conv_out/bias"] = ("encoder.conv_out.bias", t_id)
+    rules[f"{e}/quant_conv/kernel"] = ("quant_conv.weight", t_conv)
+    rules[f"{e}/quant_conv/bias"] = ("quant_conv.bias", t_id)
+    d = "decoder"
+    rules.update({
         f"{d}/post_quant_conv/kernel": ("post_quant_conv.weight", t_conv),
         f"{d}/post_quant_conv/bias": ("post_quant_conv.bias", t_id),
         f"{d}/conv_in/kernel": ("decoder.conv_in.weight", t_conv),
         f"{d}/conv_in/bias": ("decoder.conv_in.bias", t_id),
-    }
+    })
     rules.update(_vae_resnet_rules(f"{d}/mid/resnet_0", "decoder.mid_block.resnets.0"))
     rules.update(_vae_resnet_rules(f"{d}/mid/resnet_1", "decoder.mid_block.resnets.1"))
     rules.update(_vae_attn_rules(f"{d}/mid/attn", "decoder.mid_block.attentions.0"))
@@ -279,8 +301,6 @@ def clip_text_rules(config) -> Rules:
 
 _COMPONENT_RULES = {"unet": unet_motion_rules, "vae": vae_rules,
                     "text": clip_text_rules}
-# vdx subtrees the port does not carry yet
-_SKIPPED_PREFIXES = {"vae": ("encoder/",)}
 
 
 def flatten_params(params: Mapping, prefix: str = "") -> Dict[str, object]:
@@ -298,14 +318,12 @@ def flatten_params(params: Mapping, prefix: str = "") -> Dict[str, object]:
     return flat
 
 
-def state_from_rules(flat_params: Mapping[str, np.ndarray], rules: Rules,
-                     skip: Tuple[str, ...] = ()) -> Dict[str, torch.Tensor]:
+def state_from_rules(flat_params: Mapping[str, np.ndarray],
+                     rules: Rules) -> Dict[str, torch.Tensor]:
     """Flattened vdx leaves -> {torch key: fp32 tensor} through ``rules``
-    run backwards. Every leaf not under a ``skip`` prefix needs a rule."""
+    run backwards. Every leaf needs a rule."""
     state, unmatched = {}, []
     for path, leaf in flat_params.items():
-        if path.startswith(skip):
-            continue
         if path not in rules:
             unmatched.append(path)
             continue
@@ -320,8 +338,5 @@ def state_from_rules(flat_params: Mapping[str, np.ndarray], rules: Rules,
 def params_from_jax(flat_params: Mapping[str, np.ndarray], component: str,
                     config) -> Dict[str, torch.Tensor]:
     """Flattened vdx parameters of one component ("unet", "vae", "text")
-    -> the port module's state_dict (fp32 torch tensors, diffusers names).
-    vdx's VAE encoder leaves are skipped: the port carries the decoder."""
-    rules = _COMPONENT_RULES[component](config)
-    return state_from_rules(flat_params, rules,
-                            _SKIPPED_PREFIXES.get(component, ()))
+    -> the port module's state_dict (fp32 torch tensors, diffusers names)."""
+    return state_from_rules(flat_params, _COMPONENT_RULES[component](config))

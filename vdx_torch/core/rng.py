@@ -111,3 +111,11 @@ def normal(seed: int, shape: Sequence[int],
     u = torch.clamp_min(f * span + lo, _LO)
     return torch.tensor(math.sqrt(2.0), dtype=torch.float32, device=device) \
         * _erfinv_f32(u)
+
+
+def normal_batch(seeds: Sequence[int], shape: Sequence[int],
+                 device: Union[str, torch.device] = "cpu") -> torch.Tensor:
+    """vdx's initial noise for a batch of videos (``_noise_maker`` with
+    B > 1): [len(seeds), *shape], video b ``jax.random.normal(
+    PRNGKey(seeds[b]), shape)``, so it equals the single draw of seed b."""
+    return torch.stack([normal(s, shape, device) for s in seeds])

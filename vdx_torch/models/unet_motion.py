@@ -8,19 +8,24 @@ Module names follow diffusers' UNetMotionModel (down_blocks.i.resnets.j,
 .attentions.j, .motion_modules.j, .downsamplers.0, mid_block, up_blocks,
 ...), so the weight rules in core/convert.py apply unchanged.
 
-FreeU, PAB and frame-sharded temporal attention wait for later slices.
+``attn_impl`` picks the spatial and cross attention implementation (the
+motion modules keep ``auto``, as vdx's local blocks); ``freeu`` re-weights
+every (backbone, skip) pair of up stages 0 and 1 before their concat
+(nn/freeu.py). PAB and frame-sharded temporal attention wait for ROADMAP
+Queue 1 items 10b and 14.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
 from vdx_torch.core.dtypes import DEFAULT_POLICY, Policy, exact_fp32_method
 from vdx_torch.nn.embeddings import TimestepEmbedding, get_timestep_embedding
+from vdx_torch.nn.freeu import FreeUConfig, apply_freeu
 from vdx_torch.nn.layers import Conv2d
 from vdx_torch.nn.resnet import (Downsample2D, GroupNormModule, ResnetBlock2D,
                                  Upsample2D)
@@ -66,7 +71,8 @@ class _Stage(nn.Module):
     an optional resampler (diffusers' container names)."""
 
     def __init__(self, cfg: UNetMotionConfig, in_channels, channels: int,
-                 has_attn: bool, n_layers: int, resampler, policy: Policy):
+                 has_attn: bool, n_layers: int, resampler, policy: Policy,
+                 attn_impl: str):
         super().__init__()
         temb = cfg.block_out_channels[0] * 4
         ins = in_channels if isinstance(in_channels, list) \
@@ -79,7 +85,7 @@ class _Stage(nn.Module):
                 SpatialTransformer(channels, cfg.attention_heads,
                                    channels // cfg.attention_heads,
                                    cfg.cross_attention_dim,
-                                   cfg.transformer_depth, policy)
+                                   cfg.transformer_depth, policy, attn_impl)
                 for _ in range(n_layers)])
         else:
             self.attentions = None
@@ -102,7 +108,7 @@ class _Stage(nn.Module):
 
 
 class _MidBlock(nn.Module):
-    def __init__(self, cfg: UNetMotionConfig, policy: Policy):
+    def __init__(self, cfg: UNetMotionConfig, policy: Policy, attn_impl: str):
         super().__init__()
         ch = cfg.block_out_channels[-1]
         temb = cfg.block_out_channels[0] * 4
@@ -112,18 +118,21 @@ class _MidBlock(nn.Module):
             SpatialTransformer(ch, cfg.attention_heads,
                                ch // cfg.attention_heads,
                                cfg.cross_attention_dim, cfg.transformer_depth,
-                               policy)])
+                               policy, attn_impl)])
         self.motion_modules = nn.ModuleList([
             TemporalTransformer3D(ch, cfg.motion_heads, policy=policy)])
 
 
 class UNetMotion(nn.Module):
     def __init__(self, config: UNetMotionConfig = UNetMotionConfig(),
-                 policy: Policy = DEFAULT_POLICY):
+                 policy: Policy = DEFAULT_POLICY, attn_impl: str = "auto",
+                 freeu: Optional[FreeUConfig] = None):
         super().__init__()
         cfg = config
         self.config = cfg
         self.policy = policy
+        self.attn_impl = attn_impl
+        self.freeu = freeu
         c0 = cfg.block_out_channels[0]
         n = len(cfg.block_out_channels)
         L = cfg.layers_per_block
@@ -136,11 +145,11 @@ class UNetMotion(nn.Module):
         for bi, ch in enumerate(cfg.block_out_channels):
             self.down_blocks.append(_Stage(
                 cfg, prev, ch, cfg.down_block_has_attn[bi], L,
-                "down" if bi < n - 1 else None, policy))
+                "down" if bi < n - 1 else None, policy, attn_impl))
             res_ch += [ch] * L + ([ch] if bi < n - 1 else [])
             prev = ch
 
-        self.mid_block = _MidBlock(cfg, policy)
+        self.mid_block = _MidBlock(cfg, policy, attn_impl)
 
         self.up_blocks = nn.ModuleList()
         for bi, ch in enumerate(reversed(cfg.block_out_channels)):
@@ -150,7 +159,7 @@ class UNetMotion(nn.Module):
                 prev = ch
             self.up_blocks.append(_Stage(
                 cfg, ins, ch, cfg.up_block_has_attn[bi], L + 1,
-                "up" if bi < n - 1 else None, policy))
+                "up" if bi < n - 1 else None, policy, attn_impl))
 
         self.conv_norm_out = GroupNormModule(c0, 32, 1e-5, with_silu=True,
                                              policy=policy)
@@ -189,9 +198,12 @@ class UNetMotion(nn.Module):
         x = mid.motion_modules[0](x, F_)
         x = mid.resnets[1](x, temb)
 
-        for blk in self.up_blocks:
+        for bi, blk in enumerate(self.up_blocks):
             for li in range(len(blk.resnets)):
-                x = torch.cat([x, residuals.pop()], dim=-1)
+                skip = residuals.pop()
+                if self.freeu is not None:
+                    x, skip = apply_freeu(bi, x, skip, self.freeu)
+                x = torch.cat([x, skip], dim=-1)
                 x = blk.layer(li, x, temb, context, F_)
             if hasattr(blk, "upsamplers"):
                 x = blk.upsamplers[0](x)

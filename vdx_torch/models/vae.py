@@ -1,24 +1,26 @@
-"""AutoencoderKL decoder, SD-1.5 (port of vdx/models/vae.py, decode only).
+"""AutoencoderKL, SD-1.5 (port of vdx/models/vae.py's encoder and
+decoder).
 
-Block channels (128, 256, 512, 512), 3 layers per decoder block,
-GN(32, eps 1e-6), single-head mid attention, latent scaling 0.18215, 8x
-spatial upsampling. Channels-last throughout. Module names follow
-diffusers' AutoencoderKL (post_quant_conv, decoder.conv_in,
-decoder.mid_block, decoder.up_blocks, ...). The encoder comes with
-video2video (ROADMAP Queue 1 item 10).
+Block channels (128, 256, 512, 512), 2 layers per encoder block and 3 per
+decoder block, GN(32, eps 1e-6), single-head mid attention, latent scaling
+0.18215, 8x spatial down- and upsampling. Channels-last throughout. Each
+encoder downsample pads (0, 1) and convolves 3x3 stride 2 VALID, the VAE's
+own convention. Module names follow diffusers' AutoencoderKL (encoder.*,
+quant_conv, post_quant_conv, decoder.*, ...).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
 from vdx_torch.core.dtypes import DEFAULT_POLICY, Policy, exact_fp32_method
 from vdx_torch.nn.layers import Conv2d, Dense
-from vdx_torch.nn.resnet import GroupNormModule, ResnetBlock2D, Upsample2D
+from vdx_torch.nn.resnet import (Downsample2D, GroupNormModule, ResnetBlock2D,
+                                 Upsample2D)
 from vdx_torch.ops.attention import dot_product_attention
 
 
@@ -98,6 +100,56 @@ class _UpBlock(nn.Module):
         return x
 
 
+class _DownBlock(nn.Module):
+    def __init__(self, in_ch: int, ch: int, n_layers: int, downsample: bool,
+                 policy: Policy):
+        super().__init__()
+        self.resnets = nn.ModuleList([
+            ResnetBlock2D(in_ch if i == 0 else ch, ch, None, eps=1e-6,
+                          policy=policy)
+            for i in range(n_layers)])
+        if downsample:
+            self.downsamplers = nn.ModuleList([Downsample2D(ch, ch, policy)])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for r in self.resnets:
+            x = r(x)
+        if hasattr(self, "downsamplers"):
+            x = self.downsamplers[0](x)
+        return x
+
+
+class Encoder(nn.Module):
+    """Images [B, H, W, 3] -> moments [B, h, w, 2 * latent] (mean ++
+    logvar) before quant_conv."""
+
+    def __init__(self, config: VAEConfig, policy: Policy = DEFAULT_POLICY):
+        super().__init__()
+        cfg = config
+        chans = cfg.block_out_channels
+        self.policy = policy
+        self.conv_in = Conv2d(cfg.in_channels, chans[0], 3, padding=1,
+                              policy=policy)
+        self.down_blocks = nn.ModuleList()
+        prev = chans[0]
+        for bi, ch in enumerate(chans):
+            self.down_blocks.append(_DownBlock(prev, ch, cfg.layers_per_block,
+                                               bi < len(chans) - 1, policy))
+            prev = ch
+        self.mid_block = _Mid(chans[-1], policy)
+        self.conv_norm_out = GroupNormModule(chans[-1], 32, 1e-6,
+                                             with_silu=True, policy=policy)
+        self.conv_out = Conv2d(chans[-1], 2 * cfg.latent_channels, 3,
+                               padding=1, policy=policy)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.conv_in(x.to(self.policy.compute_dtype))
+        for blk in self.down_blocks:
+            x = blk(x)
+        x = self.mid_block(x)
+        return self.conv_out(self.conv_norm_out(x))
+
+
 class Decoder(nn.Module):
     def __init__(self, config: VAEConfig, policy: Policy = DEFAULT_POLICY):
         super().__init__()
@@ -127,16 +179,38 @@ class Decoder(nn.Module):
 
 
 class AutoencoderKL(nn.Module):
-    """The decoder half of the SD-1.5 VAE."""
+    """The SD-1.5 VAE: ``encode`` for video2video, ``decode`` for every
+    path."""
 
     def __init__(self, config: VAEConfig = VAEConfig(),
                  policy: Policy = DEFAULT_POLICY):
         super().__init__()
         self.config = config
         self.policy = policy
+        self.encoder = Encoder(config, policy)
+        self.quant_conv = Conv2d(2 * config.latent_channels,
+                                 2 * config.latent_channels, 1, policy=policy)
         self.post_quant_conv = Conv2d(config.latent_channels,
                                       config.latent_channels, 1, policy=policy)
         self.decoder = Decoder(config, policy)
+
+    @exact_fp32_method
+    def encode_moments(self, x: torch.Tensor) -> torch.Tensor:
+        """Images [B, H, W, 3] in [-1, 1] -> [B, h, w, 2 * latent]: the
+        posterior's mean ++ logvar, in the compute dtype."""
+        return self.quant_conv(self.encoder(x))
+
+    def encode(self, x: torch.Tensor,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Images -> pre-scaled latents [B, h, w, latent]: the posterior
+        mean times ``scaling_factor``, or with ``generator`` a sample
+        mean + std * n (logvar clamped to [-30, 20], std in fp32)."""
+        mean, logvar = self.encode_moments(x).chunk(2, dim=-1)
+        if generator is not None:
+            std = torch.exp(0.5 * torch.clamp(logvar, -30.0, 20.0).float())
+            mean = mean + std * torch.randn(mean.shape, generator=generator,
+                                            device=mean.device, dtype=std.dtype)
+        return mean * self.config.scaling_factor
 
     @exact_fp32_method
     def decode(self, z: torch.Tensor) -> torch.Tensor:

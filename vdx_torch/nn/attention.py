@@ -3,6 +3,10 @@ vdx/nn/attention.py).
 
 Attention: to_q/to_k/to_v without bias, to_out.0 with bias, scale
 1/sqrt(head_dim); self-attention (context=None) or cross-attention.
+``attn_impl`` picks the ops.attention implementation of the spatial and
+cross sites (vdx's ``Attention.attn_impl``); the motion modules keep
+``auto``.
+
 FeedForward: GEGLU — Linear(C -> 8C), split, x * gelu(gate), Linear(4C -> C).
 """
 
@@ -22,12 +26,13 @@ from vdx_torch.ops.attention import dot_product_attention
 class Attention(nn.Module):
     def __init__(self, query_dim: int, heads: int = 8, head_dim: int = 64,
                  context_dim: Optional[int] = None,
-                 policy: Policy = DEFAULT_POLICY):
+                 policy: Policy = DEFAULT_POLICY, attn_impl: str = "auto"):
         super().__init__()
         inner = heads * head_dim
         kv_dim = context_dim or query_dim
         self.heads = heads
         self.head_dim = head_dim
+        self.attn_impl = attn_impl
         self.to_q = Dense(query_dim, inner, bias=False, policy=policy)
         self.to_k = Dense(kv_dim, inner, bias=False, policy=policy)
         self.to_v = Dense(kv_dim, inner, bias=False, policy=policy)
@@ -36,10 +41,12 @@ class Attention(nn.Module):
     def forward(self, x: torch.Tensor,
                 context: Optional[torch.Tensor] = None) -> torch.Tensor:
         ctx = x if context is None else context
-        if ctx.shape[1] == 1:
+        if ctx.shape[1] == 1 and not self.attn_impl.startswith("ring"):
             # Single-KV attention: the softmax over one key is identically
             # 1, so the output is to_out(v) broadcast over the queries —
             # exact, not an approximation (vdx/nn/attention.py:78-101).
+            # Not under ring sharding, where one local frame may belong to
+            # a longer global sequence.
             out1 = self.to_out[0](self.to_v(ctx))
             return out1.expand(x.shape[0], x.shape[1], out1.shape[-1])
         B, Sq = x.shape[:2]
@@ -47,7 +54,8 @@ class Attention(nn.Module):
         q = self.to_q(x).view(B, Sq, self.heads, self.head_dim)
         k = self.to_k(ctx).view(B, Skv, self.heads, self.head_dim)
         v = self.to_v(ctx).view(B, Skv, self.heads, self.head_dim)
-        out = dot_product_attention(q, k, v, scale=self.head_dim ** -0.5)
+        out = dot_product_attention(q, k, v, scale=self.head_dim ** -0.5,
+                                    impl=self.attn_impl)
         return self.to_out[0](out.reshape(B, Sq, self.heads * self.head_dim))
 
 

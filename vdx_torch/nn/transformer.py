@@ -3,7 +3,8 @@ vdx/nn/transformer.py).
 
 SpatialTransformer: GN(32, 1e-6) -> 1x1 proj_in -> [B, H*W, C] ->
 BasicTransformerBlock (self-attn, text cross-attn, GEGLU ff) -> 1x1
-proj_out -> +residual.
+proj_out -> +residual. ``attn_impl`` reaches both attentions of every
+block (vdx/nn/transformer.py).
 """
 
 from __future__ import annotations
@@ -35,13 +36,14 @@ class LayerNormF32(nn.LayerNorm):
 class BasicTransformerBlock(nn.Module):
     def __init__(self, dim: int, heads: int, head_dim: int,
                  context_dim: Optional[int] = None,
-                 policy: Policy = DEFAULT_POLICY):
+                 policy: Policy = DEFAULT_POLICY, attn_impl: str = "auto"):
         super().__init__()
         self.norm1 = LayerNormF32(dim, policy=policy)
-        self.attn1 = Attention(dim, heads, head_dim, policy=policy)
+        self.attn1 = Attention(dim, heads, head_dim, policy=policy,
+                               attn_impl=attn_impl)
         self.norm2 = LayerNormF32(dim, policy=policy)
         self.attn2 = Attention(dim, heads, head_dim, context_dim=context_dim,
-                               policy=policy)
+                               policy=policy, attn_impl=attn_impl)
         self.norm3 = LayerNormF32(dim, policy=policy)
         self.ff = FeedForward(dim, policy=policy)
 
@@ -58,12 +60,13 @@ class SpatialTransformer(nn.Module):
 
     def __init__(self, channels: int, heads: int, head_dim: int,
                  context_dim: int = 768, depth: int = 1,
-                 policy: Policy = DEFAULT_POLICY):
+                 policy: Policy = DEFAULT_POLICY, attn_impl: str = "auto"):
         super().__init__()
         self.norm = GroupNormModule(channels, 32, 1e-6, policy=policy)
         self.proj_in = Conv2d(channels, channels, 1, policy=policy)
         self.transformer_blocks = nn.ModuleList([
-            BasicTransformerBlock(channels, heads, head_dim, context_dim, policy)
+            BasicTransformerBlock(channels, heads, head_dim, context_dim, policy,
+                                  attn_impl)
             for _ in range(depth)
         ])
         self.proj_out = Conv2d(channels, channels, 1, policy=policy)

@@ -1,3 +1,4 @@
-from vdx_torch.pipelines.base import AnimateDiffPipeline, PipelineOutput
+from vdx_torch.pipelines.base import (AnimateDiffPipeline, PipelineOutput,
+                                      SkipConfig)
 
-__all__ = ["AnimateDiffPipeline", "PipelineOutput"]
+__all__ = ["AnimateDiffPipeline", "PipelineOutput", "SkipConfig"]

@@ -1,32 +1,41 @@
-"""AnimateDiff text-to-video pipeline, plain path (port of
+"""AnimateDiff text-to-video and video2video pipeline (port of
 vdx/pipelines/base.py).
 
     pipe(prompt, negative_prompt=..., num_frames=16, guidance_scale=7.5,
          num_inference_steps=25, height=512, width=512, seed=42)
     -> output.frames[0]
+    pipe([p0, p1], seed=[s0, s1], guidance_scale=<N-entry schedule>,
+         output_type="device")                   # a batch of videos
+    pipe(prompt, video=clip, strength=0.6)       # video2video (SDEdit)
 
 Text encode -> initial noise (vdx's ``jax.random.normal(PRNGKey(seed))``,
-computed by vdx_torch.core.rng on the pipeline's device) -> CFG-batched
-denoise loop (cond and uncond in ONE UNet call per step) -> frame-chunked
-VAE decode -> uint8. The loop is a Python loop of eager steps (vdx's
-``lax.scan``); fp32 guidance and scheduler math around the compute-dtype
-UNet. Every sampler of vdx_torch.schedulers runs through the one loop:
-``scale_model_input`` -> UNet at ``tables.timesteps[i]`` -> CFG combine ->
-``step``, or ``step_multistep`` with the sampler's state in the loop's
-carry. Under an fp32 policy on CUDA every matmul and convolution runs in
-fp32, not TF32: the text encoder, UNet and VAE forwards each turn TF32 off
-while they run (core.dtypes.exact_fp32); the glue between them is
-elementwise.
+computed by vdx_torch.core.rng on the pipeline's device; one draw per
+video of a batch, so video b equals the single call with seed b) ->
+CFG-batched denoise loop (cond and uncond of every video in ONE UNet call
+per step) -> frame-chunked VAE decode -> uint8. The loop is a Python loop
+of eager steps (vdx's ``lax.scan``); fp32 guidance and scheduler math
+around the compute-dtype UNet. Every sampler of vdx_torch.schedulers runs
+through the one loop: ``scale_model_input`` -> UNet at
+``tables.timesteps[i]`` -> CFG combine -> ``step``, or ``step_multistep``
+with the sampler's state in the loop's carry. Under an fp32 policy on CUDA
+every matmul and convolution runs in fp32, not TF32: the text encoder,
+UNet and VAE forwards each turn TF32 off while they run
+(core.dtypes.exact_fp32); the glue between them is elementwise.
 
-What vdx's pipeline also does and this slice does not yet (PAB, skip,
-context windows, frame sharding, video2video, dispatch_steps, multi-prompt
-batches, per-step guidance schedules) raises ``NotImplementedError``.
+vdx's request surface: prompt batches with per-video seeds, per-step
+guidance schedules (indexed on the device), ``guidance_rescale``,
+``sampler_configs``, ``variable_steps``, ``progress``, ``attn_impl``,
+FreeU, skip turbo mode (``SkipConfig``, ``PipelineOutput.n_evals``),
+``dispatch_steps`` segments, video2video and ``output_type="device"``.
+PAB, context windows (ROADMAP Queue 1 item 10b), LoRA and checkpoints
+(10b), and frame sharding (item 14) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List, Optional, Sequence, Union
+import warnings
+from typing import Any, Callable, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -38,16 +47,43 @@ from vdx_torch.models.tokenizer import load_tokenizer
 from vdx_torch.models.unet_motion import UNetMotion, UNetMotionConfig
 from vdx_torch.models.vae import AutoencoderKL, VAEConfig
 from vdx_torch.schedulers import get_sampler, is_multistep, make_tables_for
-from vdx_torch.schedulers.common import cfg_combine
+from vdx_torch.schedulers.common import cfg_combine, pad_tables
+
+
+@dataclasses.dataclass(frozen=True)
+class SkipConfig:
+    """Adaptive whole-step model-output reuse (TeaCache-class turbo mode;
+    vdx's ``SkipConfig``). The relative L1 change of the sampler-scaled
+    latents accumulates between steps; once it reaches ``threshold`` the
+    denoiser evaluates again, else its previous output is reused.
+    ``threshold=0`` evaluates every step (bit-exact against the plain
+    loop). Warm-up and cool-down steps always evaluate."""
+
+    #: accumulated relative-L1 latent change that triggers a re-eval
+    threshold: float = 0.08
+    warmup_steps: int = 3
+    cooldown_steps: int = 3
+
+    def __post_init__(self):
+        # step 0 has no previous output to reuse — it must evaluate
+        if self.warmup_steps < 1:
+            raise ValueError("skip turbo mode needs warmup_steps >= 1")
+        if self.threshold < 0:
+            raise ValueError("threshold must be >= 0")
 
 
 @dataclasses.dataclass
 class PipelineOutput:
-    """``frames[i]`` is the i-th video: a uint8 [F, H, W, 3] array for
-    output_type="np", a list of PIL images for "pil"."""
+    """``frames[b]`` is video b: a uint8 [F, H, W, 3] array for
+    output_type="np", a list of PIL images for "pil"; for "device",
+    ``frames`` is one uint8 [B, F, H, W, 3] tensor on the pipeline's
+    device."""
 
-    frames: List[Any]
+    frames: Any
     latents: Optional[torch.Tensor] = None
+    #: skip turbo mode only: the denoiser evaluations the loop made (an
+    #: int32 tensor on the pipeline's device)
+    n_evals: Optional[torch.Tensor] = None
 
 
 def _to_uint8(imgs: torch.Tensor) -> torch.Tensor:
@@ -90,8 +126,50 @@ def random_init_(module: torch.nn.Module, generator: torch.Generator) -> int:
     return total
 
 
+@dataclasses.dataclass
+class _Request:
+    """One request's constants for the denoise loop."""
+
+    context: torch.Tensor
+    guidance: bool
+    #: a Python float, or a tensor on the device: rank 1 is a per-step
+    #: schedule indexed by the step, higher ranks broadcast as they are
+    guidance_scale: Union[float, torch.Tensor]
+    scheduler: str
+    tables: Any
+    sampler_cfg: Any
+    #: the schedule's step count N (progress's n, skip's cool-down)
+    num_steps: int
+    t_start: int = 0
+
+    def scale_at(self, i: int):
+        g = self.guidance_scale
+        return g[i] if torch.is_tensor(g) and g.dim() == 1 else g
+
+
+@dataclasses.dataclass
+class _Carry:
+    """The loop's state between steps (and between dispatch segments):
+    the latents, the multistep sampler's state, skip mode's previous
+    output, scaled latents and accumulated drift, and the evaluations
+    made so far."""
+
+    latents: torch.Tensor
+    sampler_state: Any = None
+    prev_eps: Optional[torch.Tensor] = None
+    prev_sig: Optional[torch.Tensor] = None
+    accum: Optional[torch.Tensor] = None
+    n_evals: int = 0
+
+
+def _not_yet(what: str, item: str):
+    def method(*args, **kwargs):
+        raise NotImplementedError(f"{what} comes with ROADMAP Queue 1 item {item}")
+    return method
+
+
 class AnimateDiffPipeline:
-    """SD-1.5 + motion modules, plain path."""
+    """SD-1.5 + motion modules."""
 
     def __init__(
         self,
@@ -101,8 +179,35 @@ class AnimateDiffPipeline:
         tokenizer=None,
         policy: Policy = DEFAULT_POLICY,
         scheduler: str = "euler",
+        attn_impl: str = "auto",
+        pab=None,
+        skip: Optional[SkipConfig] = None,
+        context=None,
+        frame_shards: int = 1,
+        seq_impl: str = "ulysses",
+        mesh=None,
+        variable_steps: int = 0,
+        progress: Optional[Callable[[int, int], None]] = None,
+        guidance_rescale: float = 0.0,
+        sampler_configs=None,
+        freeu=None,
         device: Union[str, torch.device] = "cuda",
     ):
+        if pab is not None and skip is not None:
+            raise ValueError("pab and skip are both turbo modes with their own "
+                             "denoise programs — pick one")
+        if context is not None and pab is not None:
+            raise ValueError("context windows and PAB are incompatible: PAB's "
+                             "attention caches are sized per model call")
+        if pab is not None:
+            raise NotImplementedError("PAB comes with ROADMAP Queue 1 item 10b")
+        if context is not None:
+            raise NotImplementedError(
+                "context windows (FreeNoise) come with ROADMAP Queue 1 item 10b")
+        if frame_shards != 1 or mesh is not None or seq_impl != "ulysses":
+            raise NotImplementedError(
+                "frame sharding (frame_shards, seq_impl, mesh) comes with "
+                "ROADMAP Queue 1 item 14")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device='cuda' but no CUDA device is available; "
@@ -110,11 +215,20 @@ class AnimateDiffPipeline:
         get_sampler(scheduler)  # ValueError on an unknown name
         self.scheduler = scheduler
         self.policy = policy
+        self.skip = skip
+        self.variable_steps = variable_steps
+        self.progress_callback = progress
+        # CFG std-rescale (Lin et al.); 0.0 = plain CFG
+        self.guidance_rescale = float(guidance_rescale)
+        # sampler name -> its config dataclass (None: the module defaults)
+        self.sampler_configs = dict(sampler_configs or {})
+        self._warned_sampler_cfg = set()
         self.tokenizer = tokenizer or load_tokenizer()
         # Built on the meta device and materialised uninitialised on the
         # target: weights come from random_init_ or a state_dict.
         with torch.device("meta"):
-            unet = UNetMotion(unet_config or UNetMotionConfig(), policy)
+            unet = UNetMotion(unet_config or UNetMotionConfig(), policy,
+                              attn_impl=attn_impl, freeu=freeu)
             vae = AutoencoderKL(vae_config, policy)
             text = CLIPTextModel(text_config, policy)
         self.unet = unet.to_empty(device=self.device).eval()
@@ -149,67 +263,151 @@ class AnimateDiffPipeline:
         for name, sd in state_dicts.items():
             modules[name].load_state_dict(sd, strict=True)
 
+    load_lora = set_lora_scale = unload_lora = _not_yet("LoRA", "10b")
+    save_checkpoint = load_checkpoint = load_pretrained = _not_yet(
+        "checkpoints", "10b")
+    from_pretrained = classmethod(_not_yet("checkpoints", "10b"))
+
     # ------------------------------------------------------------------
     # stages
     # ------------------------------------------------------------------
     @torch.inference_mode()
-    def encode_prompt(self, prompt: str, negative_prompt: str = "") -> torch.Tensor:
-        """-> [2, 77, D] context, ordered (uncond, cond) to match the CFG
-        batch split."""
-        ids = self.tokenizer([negative_prompt or "", prompt])
+    def encode_prompt(self, prompt: Union[str, Sequence[str]],
+                      negative_prompt: str = "") -> torch.Tensor:
+        """-> [2B, 77, D] context, ordered (uncond x B, cond x B) to match
+        the CFG batch split; B = 1 for a string prompt."""
+        prompts = [prompt] if isinstance(prompt, str) else list(prompt)
+        ids = self.tokenizer([negative_prompt or ""] * len(prompts) + prompts)
         ids = torch.as_tensor(np.asarray(ids), dtype=torch.long, device=self.device)
         return self.text_encoder(ids)
 
-    def _get_tables(self, scheduler: str, num_steps: int):
+    def _sampler_cfg(self, scheduler: str):
+        """The pipeline's config for this sampler, or None for the module's
+        SD-1.5 defaults; warns once per sampler when configs were given
+        for others (sampling with the wrong constants is silently wrong)."""
+        cfg = self.sampler_configs.get(scheduler)
+        if cfg is None and self.sampler_configs \
+                and scheduler not in self._warned_sampler_cfg:
+            warnings.warn(
+                f"{type(self).__name__} has checkpoint-faithful configs for "
+                f"{sorted(self.sampler_configs)} but none for "
+                f"scheduler={scheduler!r}; falling back to the sampler "
+                "module's SD-1.5 defaults (epsilon prediction, linear betas) "
+                "— pass sampler_configs={...} if that is not what this "
+                "checkpoint was trained with", stacklevel=3)
+            self._warned_sampler_cfg.add(scheduler)
+        return cfg
+
+    def _get_tables(self, scheduler: str, num_steps: int, max_steps: int = 0):
         """The sampler's tables on the pipeline's device, built once per
-        (sampler, step count) and cached: no per-call host work."""
-        key = (scheduler.lower(), num_steps)
+        (sampler, step count, padded length, config) and cached: no
+        per-call host work. ``max_steps`` > 0 edge-pads them to that many
+        steps (``variable_steps``)."""
+        cfg = self._sampler_cfg(scheduler)
+        key = (scheduler.lower(), num_steps, max_steps, cfg)
         if key not in self._tables:
-            self._tables[key] = make_tables_for(scheduler, num_steps,
-                                                device=self.device)
+            tables = make_tables_for(scheduler, num_steps, cfg, device=self.device)
+            if max_steps:
+                tables = pad_tables(tables, num_steps, max_steps)
+            self._tables[key] = tables
         return self._tables[key]
 
-    def initial_noise(self, latent_shape, seed: int) -> torch.Tensor:
-        """vdx's initial noise for ``seed``: the same fp32 values on the
-        CPU and on the card (vdx_torch.core.rng)."""
-        return rng.normal(seed, latent_shape, self.device)
+    def initial_noise(self, latent_shape, seed: Union[int, Sequence[int]]
+                      ) -> torch.Tensor:
+        """vdx's initial noise (the same fp32 values on the CPU and on the
+        card, vdx_torch.core.rng). For B = latent_shape[0] > 1, video b
+        draws from its own seed; a scalar seed serves every video."""
+        B = latent_shape[0]
+        if B == 1:
+            if isinstance(seed, (list, tuple)):
+                (seed,) = seed
+            return rng.normal(int(seed), latent_shape, self.device)
+        seeds = list(seed) if isinstance(seed, (list, tuple)) else [seed] * B
+        if len(seeds) != B:  # vdx's exception type (an assert in _seed_keys)
+            raise AssertionError(f"got {len(seeds)} seeds for {B} prompts")
+        return rng.normal_batch([int(s) for s in seeds], latent_shape[1:],
+                                self.device)
+
+    def _eval(self, req: _Request, latents: torch.Tensor, i: int) -> torch.Tensor:
+        """One CFG-batched denoiser evaluation at step i (a Python int: no
+        host synchronisation); calls ``progress(i, N)``."""
+        sampler = get_sampler(req.scheduler)
+        model_in = torch.cat([latents, latents]) if req.guidance else latents
+        model_in = sampler.scale_model_input(model_in, i, req.tables)
+        t_b = req.tables.timesteps[i].expand(model_in.shape[0])
+        eps = self.unet(model_in, t_b, req.context)
+        if req.guidance:
+            u, c = eps.chunk(2)
+            eps = cfg_combine(u, c, req.scale_at(i), self.guidance_rescale)
+        if self.progress_callback is not None:
+            self.progress_callback(i, req.num_steps)
+        return eps
+
+    def _step(self, req: _Request, carry: _Carry, eps: torch.Tensor, i: int):
+        sampler = get_sampler(req.scheduler)
+        kw = {} if req.sampler_cfg is None else {"cfg": req.sampler_cfg}
+        if is_multistep(req.scheduler):
+            carry.latents, carry.sampler_state = sampler.step_multistep(
+                carry.latents, eps, i, carry.sampler_state, req.tables, **kw)
+        else:
+            carry.latents = sampler.step(carry.latents, eps, i, req.tables, **kw)
 
     @torch.inference_mode()
     def denoise_step(self, latents: torch.Tensor, i: int, context: torch.Tensor,
-                     guidance_scale: float, guidance: bool, scheduler: str,
-                     tables, state=None):
-        """One CFG-batched UNet evaluation and sampler update at step i
-        (a Python int: no host synchronisation). -> (latents, state);
-        ``state`` is the multistep sampler's carry, None for the others."""
-        sampler = get_sampler(scheduler)
-        model_in = torch.cat([latents, latents]) if guidance else latents
-        model_in = sampler.scale_model_input(model_in, i, tables)
-        t_b = tables.timesteps[i].expand(model_in.shape[0])
-        eps = self.unet(model_in, t_b, context)
-        if guidance:
-            u, c = eps.chunk(2)
-            eps = cfg_combine(u, c, guidance_scale)
-        if is_multistep(scheduler):
-            return sampler.step_multistep(latents, eps, i, state, tables)
-        return sampler.step(latents, eps, i, tables), state
+                     guidance_scale, guidance: bool, scheduler: str, tables,
+                     state=None):
+        """One CFG-batched UNet evaluation and sampler update at step i.
+        -> (latents, state); ``state`` is the multistep sampler's carry,
+        None for the others."""
+        req = _Request(context, guidance, guidance_scale, scheduler, tables,
+                       self._sampler_cfg(scheduler), len(tables.timesteps))
+        carry = _Carry(latents, state)
+        self._step(req, carry, self._eval(req, latents, i), i)
+        return carry.latents, carry.sampler_state
+
+    def _run_steps(self, req: _Request, carry: _Carry, a: int, b: int) -> None:
+        """Steps [a, b) of the schedule on ``carry``, in place."""
+        if self.skip is None:
+            for i in range(a, b):
+                self._step(req, carry, self._eval(req, carry.latents, i), i)
+            return
+        # Skip turbo mode (vdx's scan body): the drift test is read on the
+        # host, one scalar per step that is not a forced evaluation.
+        sampler, skip = get_sampler(req.scheduler), self.skip
+        for i in range(a, b):
+            sig = sampler.scale_model_input(carry.latents, i, req.tables).float()
+            rel = (sig - carry.prev_sig).abs().mean() \
+                / (carry.prev_sig.abs().mean() + 1e-8)
+            carry.accum = carry.accum + rel
+            forced = (i < req.t_start + skip.warmup_steps
+                      or i >= req.num_steps - skip.cooldown_steps)
+            if forced or bool(carry.accum >= skip.threshold):
+                carry.prev_eps = self._eval(req, carry.latents, i).float()
+                carry.accum = torch.zeros_like(carry.accum)
+                carry.n_evals += 1
+            self._step(req, carry, carry.prev_eps, i)
+            carry.prev_sig = sig
 
     @torch.inference_mode()
-    def _denoise(self, context: torch.Tensor, guidance_scale: float,
-                 guidance: bool, scheduler: str, tables, latent_shape,
-                 seed: int,
-                 latents_in: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """The denoise loop. ``latents_in`` replaces the seeded initial
-        noise, unscaled (the tests feed the JAX program's noise)."""
-        noise = (self.initial_noise(latent_shape, seed) if latents_in is None
-                 else latents_in.to(device=self.device, dtype=torch.float32))
-        latents = noise * tables.init_noise_sigma
-        state = (get_sampler(scheduler).init_state(latents)
-                 if is_multistep(scheduler) else None)
-        for i in range(len(tables.timesteps)):
-            latents, state = self.denoise_step(latents, i, context,
-                                               guidance_scale, guidance,
-                                               scheduler, tables, state)
-        return latents
+    def _denoise(self, req: _Request, latents: torch.Tensor,
+                 dispatch_steps: int = 0) -> _Carry:
+        """The denoise loop from ``latents`` over steps [req.t_start, N).
+        With ``dispatch_steps`` = K it runs as segments [0, K), [K, 2K),
+        ... that hand the carry on, with no host sync between them (vdx's
+        segmented dispatch; the same operations, so the same bits)."""
+        carry = _Carry(latents)
+        if is_multistep(req.scheduler):
+            carry.sampler_state = get_sampler(req.scheduler).init_state(latents)
+        if self.skip is not None:
+            carry.prev_eps = torch.zeros(latents.shape, device=latents.device)
+            carry.prev_sig = torch.zeros(latents.shape, device=latents.device)
+            carry.accum = torch.zeros((), device=latents.device)
+        N = req.num_steps
+        bounds = (list(range(req.t_start, N, dispatch_steps)) + [N]
+                  if dispatch_steps else [req.t_start, N])
+        for a, b in zip(bounds[:-1], bounds[1:]):
+            self._run_steps(req, carry, a, b)
+        return carry
 
     @torch.inference_mode()
     def _decode(self, latents: torch.Tensor, chunk: int) -> torch.Tensor:
@@ -220,6 +418,15 @@ class AnimateDiffPipeline:
         out = [_to_uint8(self.vae.decode(z[n])) for n in range(z.shape[0])]
         return torch.cat(out).reshape(B, F_, *out[0].shape[1:])
 
+    @torch.inference_mode()
+    def _encode(self, video: torch.Tensor, chunk: int) -> torch.Tensor:
+        """[B, F, H, W, 3] in [-1, 1] -> [B, F, h, w, C] scaled posterior
+        means, encoded ``chunk`` frames at a time."""
+        B, F_ = video.shape[:2]
+        x = video.reshape(B * F_ // chunk, chunk, *video.shape[2:])
+        out = [self.vae.encode(x[n]) for n in range(x.shape[0])]
+        return torch.cat(out).reshape(B, F_, *out[0].shape[1:])
+
     # ------------------------------------------------------------------
     # public API (vdx's argument names)
     # ------------------------------------------------------------------
@@ -228,11 +435,11 @@ class AnimateDiffPipeline:
         prompt: Union[str, Sequence[str]],
         negative_prompt: str = "",
         num_frames: int = 16,
-        guidance_scale: float = 7.5,
+        guidance_scale=7.5,
         num_inference_steps: int = 25,
         height: int = 512,
         width: int = 512,
-        seed: int = 0,
+        seed: Union[int, Sequence[int]] = 0,
         scheduler: Optional[str] = None,
         output_type: str = "pil",
         decode_chunk: int = 8,
@@ -240,41 +447,92 @@ class AnimateDiffPipeline:
         strength: float = 0.8,
         dispatch_steps: int = 0,
     ) -> PipelineOutput:
-        del strength  # video2video only
-        if video is not None:
-            raise NotImplementedError(
-                "video2video comes with ROADMAP Queue 1 item 10")
-        if dispatch_steps:
-            raise NotImplementedError(
-                "dispatch_steps comes with ROADMAP Queue 1 item 10")
-        if not isinstance(prompt, str):
-            raise NotImplementedError(
-                "multi-prompt batches come with ROADMAP Queue 1 item 9")
-        if np.ndim(guidance_scale) != 0:
-            raise NotImplementedError(
-                "per-step guidance schedules come with ROADMAP Queue 1 item 9")
-        if output_type not in ("np", "pil", "latent"):
-            raise NotImplementedError(f"output_type={output_type!r}")
+        """Text-to-video; ``video`` ([F, H, W, 3] or [B, F, H, W, 3], uint8
+        or float in [-1, 1]) makes it video2video (SDEdit): the clip is
+        VAE-encoded, diffused to ``strength`` of the schedule and denoised
+        over the remaining steps; ``num_frames``/``height``/``width`` then
+        come from the clip. ``guidance_scale`` of rank 1 is a per-step
+        schedule of ``num_inference_steps`` entries. ``dispatch_steps`` = K
+        runs the loop as segments of K steps. output_type "device" leaves
+        the frames on the device and returns without a host sync."""
+        if output_type not in ("np", "pil", "latent", "device"):
+            raise ValueError(f"unknown output_type {output_type!r}")
         scheduler = scheduler or self.scheduler
-        ds = self.vae.config.downscale
-        latent_shape = (1, num_frames, height // ds, width // ds,
-                        self.unet.config.in_channels)
-        guidance = float(guidance_scale) > 1.0
-        context = self.encode_prompt(prompt, negative_prompt)
+        N = num_inference_steps
+        t_start = 0
+        if video is not None:
+            if is_multistep(scheduler):
+                raise ValueError("video2video supports ddim/euler/edm samplers "
+                                 "(a multistep state assumes a full trajectory)")
+            if not 0.0 < strength <= 1.0:
+                raise ValueError(f"strength must be in (0, 1], got {strength}")
+            video = torch.as_tensor(video if torch.is_tensor(video)
+                                    else np.asarray(video), device=self.device)
+            if video.dim() == 4:
+                video = video[None]
+            video = (video.float() / 127.5 - 1.0 if video.dtype == torch.uint8
+                     else video.float())
+            _, num_frames, height, width = video.shape[:4]
+            # SDEdit truncation: at least one step for any strength > 0
+            t_start = N - min(max(int(N * strength), 1), N)
+        B = 1 if isinstance(prompt, str) else len(prompt)
+        if video is not None and video.shape[0] != B:
+            raise ValueError(f"video batch {video.shape[0]} != prompt batch {B}")
+        segmented = bool(dispatch_steps) and dispatch_steps < N
+        if segmented and video is not None:
+            raise ValueError("dispatch_steps does not compose with video2video")
+
+        gs = np.asarray(guidance_scale, np.float32)
+        guidance = float(np.max(gs)) > 1.0
+        use_var = (self.variable_steps > 0 and self.skip is None
+                   and video is None and not segmented
+                   and N <= self.variable_steps)
+        tables = self._get_tables(scheduler, N,
+                                  self.variable_steps if use_var else 0)
+        if gs.ndim == 1:
+            # a per-step schedule: checked here (an index past its end
+            # would fail mid-loop), edge-padded to the padded tables
+            if gs.shape[0] != N:
+                raise ValueError(f"per-step guidance schedule has "
+                                 f"{gs.shape[0]} entries for {N} steps")
+            if use_var:
+                gs = np.pad(gs, (0, self.variable_steps - N), mode="edge")
+        scale = float(gs) if gs.ndim == 0 else torch.as_tensor(gs, device=self.device)
+
+        context = self.encode_prompt(prompt, negative_prompt)  # [2B, 77, D]
         if not guidance:
-            context = context[1:]
-        tables = self._get_tables(scheduler, num_inference_steps)
-        latents = self._denoise(context, float(guidance_scale), guidance,
-                                scheduler, tables, latent_shape, int(seed))
-        if output_type == "latent":
-            return PipelineOutput(frames=[], latents=latents)
+            context = context[B:]
+        ds = self.vae.config.downscale
+        latent_shape = (B, num_frames, height // ds, width // ds,
+                        self.unet.config.in_channels)
         chunk = max(1, min(decode_chunk, num_frames))
         while num_frames % chunk:
             chunk -= 1
-        frames = self._decode(latents, chunk).cpu().numpy()
+        req = _Request(context, guidance, scale, scheduler, tables,
+                       self._sampler_cfg(scheduler), N, t_start)
+        noise = self.initial_noise(latent_shape, seed)
+        if video is None:
+            latents = noise * tables.init_noise_sigma
+        else:
+            z = self._encode(video, chunk)
+            latents = get_sampler(scheduler).add_noise_at(
+                z.float(), noise, t_start, tables)
+        carry = self._denoise(req, latents,
+                              dispatch_steps=dispatch_steps if segmented else 0)
+        latents = carry.latents
+        n_evals = (None if self.skip is None else
+                   torch.tensor(carry.n_evals, dtype=torch.int32, device=self.device))
+        if output_type == "latent":
+            return PipelineOutput(frames=[], latents=latents, n_evals=n_evals)
+        frames = self._decode(latents, chunk)
+        if output_type == "device":
+            return PipelineOutput(frames=frames, latents=latents, n_evals=n_evals)
+        frames = frames.cpu().numpy()
         if output_type == "np":
-            return PipelineOutput(frames=[frames[0]], latents=latents)
+            return PipelineOutput(frames=[frames[b] for b in range(B)],
+                                  latents=latents, n_evals=n_evals)
         from PIL import Image
 
-        return PipelineOutput(frames=[[Image.fromarray(f) for f in frames[0]]],
-                              latents=latents)
+        return PipelineOutput(
+            frames=[[Image.fromarray(f) for f in frames[b]] for b in range(B)],
+            latents=latents, n_evals=n_evals)

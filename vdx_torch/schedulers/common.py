@@ -129,3 +129,24 @@ def pred_x0_and_eps(sample: torch.Tensor, model_output: torch.Tensor,
     else:
         raise ValueError(f"unknown prediction_type: {prediction_type}")
     return x0, eps
+
+
+def pad_tables(tables, num_steps: int, max_steps: int):
+    """Edge-pad every per-step leaf of an N-step table NamedTuple to
+    ``max_steps`` rows (port of vdx's ``pad_tables``): tensors of [N] or
+    [N+k] gain (max_steps - num_steps) copies of their last row on their
+    own device; Python scalars become fp32 tensors on the tables' device.
+    The pipeline's ``variable_steps`` mode runs steps i < num_steps only,
+    so the padded rows are never read."""
+    extra = max_steps - num_steps
+    if extra < 0:
+        raise ValueError(f"num_steps {num_steps} > max_steps {max_steps}")
+    fields = tables._asdict()
+    device = next(v.device for v in fields.values() if torch.is_tensor(v))
+    out = {}
+    for name, leaf in fields.items():
+        if torch.is_tensor(leaf) and leaf.dim() >= 1:
+            out[name] = torch.cat([leaf, leaf[-1:].expand(extra, *leaf.shape[1:])])
+        else:
+            out[name] = torch.as_tensor(leaf, dtype=torch.float32, device=device)
+    return type(tables)(**out)

@@ -87,3 +87,21 @@ def scale_model_input(sample: torch.Tensor, step_index,
     """DDIM applies no input scaling (identity, for a uniform sampler API)."""
     del step_index, tables
     return sample
+
+
+def add_noise(original: torch.Tensor, noise: torch.Tensor, timestep,
+              cfg: DDIMConfig = DDIMConfig()) -> torch.Tensor:
+    """Forward-diffuse clean samples to train-time t: sqrt(a_t) x +
+    sqrt(1 - a_t) n with a_t = alphas_cumprod[t] in fp32."""
+    acp = torch.as_tensor(make_alphas_cumprod(cfg.schedule), device=original.device)
+    a = acp[torch.as_tensor(timestep, device=original.device).long()]
+    return torch.sqrt(a) * original + torch.sqrt(1.0 - a) * noise
+
+
+def add_noise_at(original: torch.Tensor, noise: torch.Tensor, step_index,
+                 tables: DDIMTables) -> torch.Tensor:
+    """``add_noise`` indexed by inference step (the video2video entry
+    point): clean latents diffused to the step_index-th table node, in
+    fp32."""
+    a = tables.alpha_prod_t[step_index]
+    return torch.sqrt(a) * original.float() + torch.sqrt(1.0 - a) * noise.float()

@@ -72,3 +72,10 @@ def step(sample: torch.Tensor, model_output: torch.Tensor, step_index,
     denoised = denoised_from_model_output(sample, model_output, sigma, cfg)
     d = (x - denoised) / sigma
     return (x + d * (sigma_next - sigma)).to(sample.dtype)
+
+
+def add_noise_at(original: torch.Tensor, noise: torch.Tensor, step_index,
+                 tables: EDMTables) -> torch.Tensor:
+    """Clean latents diffused to the step_index-th sigma node, x + sigma n
+    in fp32 (video2video; EDM latents live at natural scale)."""
+    return original.float() + tables.sigmas[step_index] * noise.float()

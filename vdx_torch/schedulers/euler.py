@@ -96,3 +96,11 @@ def step(sample: torch.Tensor, model_output: torch.Tensor, step_index,
     derivative = (sample32 - denoised) / sigma
     prev_sample = sample32 + derivative * (sigma_next - sigma)
     return prev_sample.to(sample.dtype)
+
+
+def add_noise_at(original: torch.Tensor, noise: torch.Tensor, step_index,
+                 tables: EulerTables) -> torch.Tensor:
+    """Clean latents diffused to the step_index-th sigma node, x + sigma n
+    in fp32 (the video2video entry point: the trajectory continues from
+    that node as if it had been denoised down to it)."""
+    return original.float() + tables.sigmas[step_index] * noise.float()
