@@ -80,6 +80,29 @@ Phases, one flushed line each with its seconds:
      and at a threshold that skips (fewer evaluations), progress called
      once per evaluation, dispatch_steps=2 and variable_steps=8 equal to
      the plain call, attn_impl="xla" launching no K1
+ 17. PAB: phase 7's call under PABConfig() (spatial 2, temporal 4, cross
+     6, warm-up 2, cool-down 2): the cache's bytes per attention type,
+     the timed call (K1 on the 15 spatial refresh steps only: 150
+     launches; K2/K3 as phase 7), every interval 1 against phase 7's
+     launches and latents (torch.equal), dispatch_steps=5 against the
+     monolithic PAB call (torch.equal)
+ 18. context windows: 32 frames at 512x512 under ContextConfig() (windows
+     of 16 at starts 0, 8, 16, pyramid weights, FreeNoise): the FreeNoise
+     draw on the card against the CPU (bits and permutations exact,
+     normals within RNG_TOL), one windowed UNet evaluation against the
+     plain K1/K2/K3 (REL_L2_TOL) with 3 UNet calls' launches, then the
+     timed call (K1 750 launches)
+ 19. LoRA: a rank-8 peft adapter over every default target of the UNet
+     from seeded factors, written by the port's .safetensors writer and
+     loaded at scale 0.8: every merged weight against the plain fp32
+     merge on the CPU, one UNet evaluation on K1/K2/K3, scale 0 and
+     unload_lora against the pristine weights (torch.equal)
+ 20. checkpoints: the weights as diffusers-named files (the SD-1.5 UNet
+     without its motion keys, the motion adapter, the VAE, the text
+     tower) through from_pretrained into a second pipeline (every tensor
+     and one UNet evaluation torch.equal), then save_checkpoint and
+     load_checkpoint the same way; the files (about 3 GB) live under
+     vdx_torch/_build/smoke_files/ only while their phase runs
 Phase 3 also checks the wgmma + TMA pipeline at its edges (Sq and Skv off
 the tiles, Skv under one tile, q/k/v as views into one fused projection,
 rows whose every scaled logit is below -46; every form at each head-dim
@@ -116,9 +139,10 @@ import sys
 import time
 from functools import partial
 
-# a hang ends with a stack trace well before any outer time limit; the
-# whole run, build included, takes about three minutes on an H100
-HANG_BUDGET_S = 420
+# a hang ends with a stack trace well before any outer time limit (1200 s
+# for the whole run); the run, build included, takes about five minutes
+# on an H100
+HANG_BUDGET_S = 900
 ROOT = pathlib.Path(__file__).resolve().parent
 # H100 SXM published peaks at 700 W: bf16 dense tensor cores,
 # fp32 outside the tensor cores, HBM3
@@ -163,6 +187,12 @@ KNOB_STEPS = 6  # phase 16
 # bits; the fp32 erfinv polynomial's log1p and sqrt may round differently
 # on the two (a few ulps of values up to ~6, ulp 4.8e-7)
 RNG_TOL = 4e-6
+# phase 18: 32 frames in windows of 16 at stride 8 (starts 0, 8, 16)
+CONTEXT_FRAMES = 32
+# phase 19: a rank-8 peft adapter over every default target, at scale 0.8
+LORA_RANK, LORA_SCALE = 8, 0.8
+# scratch files of phases 19 and 20 (about 3 GB), deleted after each
+SCRATCH = ROOT / "vdx_torch" / "_build" / "smoke_files"
 
 
 def log(msg: str) -> None:
@@ -789,7 +819,7 @@ def read_counters() -> dict:
     return {k: fn.launches for k, fn in counters().items()} | form_counters()
 
 
-def timed_call(pipe, label: str, prompt=PROMPT, **kw):
+def timed_call(pipe, label: str, prompt=PROMPT, keep=None, **kw):
     """One __call__ with the counters reset just before it and read again
     as the VAE encode ends (video2video) and as the decode starts (Python
     reads, no synchronise), which split each kernel's launches between the
@@ -797,7 +827,8 @@ def timed_call(pipe, label: str, prompt=PROMPT, **kw):
     synchronise after the call (output_type="device" returns before the
     card is done). -> (seconds, frames: video 0 as numpy, or the [B, F,
     H, W, 3] device tensor, latents finite, launches by stage, peak
-    bytes)."""
+    bytes); ``keep["latents"]`` gets the latents when ``keep`` is a
+    dict."""
     import torch
 
     marks = {}
@@ -829,6 +860,8 @@ def timed_call(pipe, label: str, prompt=PROMPT, **kw):
                 "decode": {k: n - marks["decode"][k] for k, n in launches.items()}}
     peak = torch.cuda.max_memory_allocated()
     lat_finite = bool(torch.isfinite(out.latents).all())
+    if keep is not None:
+        keep["latents"] = out.latents
     frames = out.frames if torch.is_tensor(out.frames) else out.frames[0]
     n_frames = math.prod(frames.shape[:-3])  # [B, F] on the card, [F] numpy
     log(f"[{label}] {kw['num_inference_steps']} "
@@ -1456,23 +1489,12 @@ def run_knobs(pipe) -> dict:
     attn_impl at 512x512, KNOB_STEPS DDIM steps, latents out."""
     import torch
 
-    from vdx_torch.pipelines import AnimateDiffPipeline, SkipConfig
+    from vdx_torch.pipelines import SkipConfig
 
     t0 = time.time()
     w = dict(WORKLOAD, scheduler="ddim", num_inference_steps=KNOB_STEPS,
              output_type="latent")
-
-    def sibling(**kw):
-        """A pipeline with other knobs over ``pipe``'s weights."""
-        p = AnimateDiffPipeline(pipe.unet.config, pipe.vae.config,
-                                pipe.text_encoder.config, pipe.tokenizer,
-                                pipe.policy, device=pipe.device, **kw)
-        if "attn_impl" in kw:  # the UNet's own attention modules change
-            p.unet.load_state_dict(pipe.unet.state_dict())
-        else:
-            p.unet = pipe.unet
-        p.vae, p.text_encoder = pipe.vae, pipe.text_encoder
-        return p
+    sibling = partial(sibling_of, pipe)
 
     calls = []
     plain = pipe(PROMPT, **w).latents
@@ -1512,6 +1534,359 @@ def run_knobs(pipe) -> dict:
           and res["xla_finite"])
     if not ok:
         raise SystemExit(f"knobs: {res}")
+    return res
+
+
+def sibling_of(pipe, **kw):
+    """A pipeline with other knobs over ``pipe``'s modules (its own UNet,
+    with ``pipe``'s weights, when ``attn_impl`` changes the attention
+    modules)."""
+    from vdx_torch.pipelines import AnimateDiffPipeline
+
+    p = AnimateDiffPipeline(pipe.unet.config, pipe.vae.config,
+                            pipe.text_encoder.config, pipe.tokenizer,
+                            pipe.policy, device=pipe.device, **kw)
+    if "attn_impl" in kw:
+        p.unet.load_state_dict(pipe.unet.state_dict())
+    else:
+        p.unet = pipe.unet
+    p.vae, p.text_encoder = pipe.vae, pipe.text_encoder
+    return p
+
+
+def first_step_inputs(pipe, frames: int = 16):
+    """The CFG-batched UNet input, timesteps and context of the first
+    DDIM step at 512x512 (phase 6's), from the pipeline's own noise."""
+    import torch
+
+    hw = WORKLOAD["height"] // 8
+    with torch.inference_mode():
+        ctx = pipe.encode_prompt(PROMPT, WORKLOAD["negative_prompt"])
+        tables = pipe._get_tables("ddim", TIMED_STEPS)
+        lat = pipe.initial_noise((1, frames, hw, hw, 4), WORKLOAD["seed"])
+        lat = lat * tables.init_noise_sigma
+        return torch.cat([lat, lat]), tables.timesteps[0].expand(2), ctx
+
+
+def attention_type(key: str) -> str:
+    """A PAB cache key's attention type (vdx's routing)."""
+    if ".motion_modules." in key:
+        return "temporal"
+    return "spatial" if key.endswith("attn1") else "cross"
+
+
+def run_pab(pipe, plain: dict, gn_per_call) -> tuple:
+    """Phase 17: phase 7's call under PABConfig() (spatial 2, temporal 4,
+    cross 6, warm-up 2, cool-down 2), then every interval 1 against phase
+    7's launches and latents, and dispatch_steps=5 against the monolithic
+    PAB call. ``plain``: phase 7's latents and denoise launches."""
+    import torch
+
+    from vdx_torch.pipelines import PABConfig
+    from vdx_torch.pipelines.base import pab_refresh_flags
+
+    t0 = time.time()
+    pab = sibling_of(pipe, pab=PABConfig())
+    w = dict(WORKLOAD, scheduler="ddim")
+    model_in, t_b, ctx = first_step_inputs(pipe)
+    with torch.inference_mode():  # the cache's bytes, from step 0's flags
+        _, cache = pipe.unet(model_in, t_b, ctx, pab_refresh=pab_refresh_flags(
+            pab.pab, 0, TIMED_STEPS))
+        cache_bytes = {}
+        for k, v in cache.items():
+            typ = attention_type(k)
+            cache_bytes[typ] = cache_bytes.get(typ, 0) + v.numel() * v.element_size()
+        n_sites = {t: sum(attention_type(k) == t for k in cache) for t in cache_bytes}
+        del cache, _
+    torch.cuda.empty_cache()
+    refreshes = {t: sum(bool(pab_refresh_flags(pab.pab, i, TIMED_STEPS)[t])
+                        for i in range(TIMED_STEPS))
+                 for t in ("spatial", "cross", "temporal")}
+    log(f"[pab] cache of one request at {WORKLOAD['height']}x"
+        f"{WORKLOAD['width']} ({pipe.policy.compute_dtype}): {cache_bytes} bytes, "
+        f"{sum(cache_bytes.values()) / 2**30:.3f} GiB, sites {n_sites}; "
+        f"refresh steps of {TIMED_STEPS}: {refreshes} ({time.time() - t0:.1f}s)")
+    keep = {}
+    secs, frames, lat_finite, by_stage, peak = timed_call(
+        pab, "pab", keep=keep, num_inference_steps=TIMED_STEPS, **w)
+    want_k1 = 10 * refreshes["spatial"]
+    if by_stage["denoise"]["K1"] != want_k1 or by_stage["decode"]["K1"]:
+        raise SystemExit(f"pab: launches {by_stage}, expected K1 {want_k1} "
+                         "times in the denoise loop (10 a refresh step)")
+    check_no_forms(by_stage, "pab")
+    chunks = WORKLOAD["num_frames"] // WORKLOAD["decode_chunk"]
+    check_gn_launches(by_stage, gn_per_call, "512", TIMED_STEPS, chunks)
+    F_, H, W = (WORKLOAD[k] for k in ("num_frames", "height", "width"))
+    check_frames(frames, (F_, H, W, 3), lat_finite, "pab")
+    lw = dict(w, output_type="latent", num_inference_steps=TIMED_STEPS)
+    exact = sibling_of(pipe, pab=PABConfig(1, 1, 1, 1))
+    torch.cuda.synchronize()
+    reset_counters()
+    lat1 = exact(PROMPT, **lw).latents
+    launches1 = read_counters()
+    seg = pab(PROMPT, dispatch_steps=5, **lw).latents
+    res = {"K1": by_stage["denoise"]["K1"], "K1_plain": plain["denoise"]["K1"],
+           "K2": by_stage["denoise"]["K2"], "K3": by_stage["denoise"]["K3"],
+           "refresh_steps": refreshes, "cache_bytes": cache_bytes,
+           "interval1_launches_equal": launches1 == plain["denoise"],
+           "interval1_latents_equal": torch.equal(lat1, plain["latents"]),
+           "dispatch5_equal": torch.equal(seg, keep["latents"]),
+           "rel_l2_vs_plain": rel_l2(keep["latents"], plain["latents"])}
+    log(f"[pab] {res} ({time.time() - t0:.1f}s)")
+    if not (res["interval1_launches_equal"] and res["interval1_latents_equal"]
+            and res["dispatch5_equal"]):
+        raise SystemExit(f"pab: {res}")
+    return dict(secs=secs, by_stage=by_stage, peak=peak, frames=F_,
+                steps=TIMED_STEPS, chunks=chunks), res
+
+
+def run_context(pipe, gn_per_call) -> tuple:
+    """Phase 18: CONTEXT_FRAMES frames at 512x512 under ContextConfig()
+    (windows of 16 at stride 8, pyramid weights, FreeNoise): the FreeNoise
+    draw on the card against the CPU, one windowed UNet evaluation against
+    the plain versions, then the timed call."""
+    import torch
+
+    from vdx_torch.core import rng
+    from vdx_torch.pipelines import ContextConfig
+    from vdx_torch.pipelines.context import (make_freenoise_maker,
+                                             make_windowed_apply, window_starts)
+
+    t0 = time.time()
+    cfg = ContextConfig()
+    cp = sibling_of(pipe, context=cfg)
+    F_, seed, H = CONTEXT_FRAMES, WORKLOAD["seed"], WORKLOAD["height"]
+    shape = (1, F_, H // 8, H // 8, 4)
+    noise = cp.initial_noise(shape, seed)
+    cpu = make_freenoise_maker(shape, cfg.frames, "cpu")([rng.prng_key(seed)])
+    k_base, k_perm = rng.split(rng.prng_key(seed))
+    base_shape = (cfg.frames,) + shape[2:]
+    blocks, perm_ok = [], True
+    for r in range(1, F_ // cfg.frames):
+        k_perm, k = rng.split(k_perm)
+        perm = rng.permutation(k, cfg.frames).to(noise.device)
+        perm_ok &= torch.equal(noise[0, r * cfg.frames:(r + 1) * cfg.frames],
+                               noise[0, :cfg.frames][perm])
+    rng_res = {"bits_equal": torch.equal(
+                   rng.key_bits(k_base, base_shape, noise.device).cpu(),
+                   rng.key_bits(k_base, base_shape)),
+               "blocks_permuted_base": bool(perm_ok),
+               "bit_equal": torch.equal(noise.cpu(), cpu),
+               "max_abs_diff": (noise.cpu() - cpu).abs().max().item()}
+    starts = window_starts(F_, cfg.frames, cfg.stride)
+    model_in, t_b, ctx = first_step_inputs(cp, F_)
+    windowed = make_windowed_apply(cp.unet, total_frames=F_, out_channels=4,
+                                   cfg=cfg)
+    with torch.inference_mode():
+        reset_counters()
+        eps_k = windowed(model_in, t_b, ctx)
+        launches = read_counters()
+        with plain_versions("K1", "K2/K3"):
+            eps_p = windowed(model_in, t_b, ctx)
+        rel = rel_l2(eps_k, eps_p)
+    per_eval = {"K1": 10 * len(starts), "K4": 0} | {
+        k: n * len(starts) for k, n in gn_per_call[("512", "unet")].items()}
+    log(f"[context] FreeNoise {list(shape)} on the card against the CPU: "
+        f"{rng_res} (tol {RNG_TOL}); one windowed UNet evaluation (starts "
+        f"{starts}, {eps_k.dtype}): rel_l2(kernels vs plain K1+K2/K3)="
+        f"{rel:.3e} (bar {REL_L2_TOL}) launches {launches} (expected "
+        f"{per_eval}) ({time.time() - t0:.1f}s)")
+    if not (rng_res["bits_equal"] and rng_res["blocks_permuted_base"]
+            and rng_res["max_abs_diff"] <= RNG_TOL):
+        raise SystemExit("context: the FreeNoise draw differs between the "
+                         "card and the CPU")
+    if not (rel < REL_L2_TOL and bool(torch.isfinite(eps_k).all())):
+        raise SystemExit("context: the windowed evaluation disagrees with "
+                         "the plain versions")
+    if any(launches[k] != n for k, n in per_eval.items()):
+        raise SystemExit(f"context: launches {launches}, expected {per_eval}")
+    del eps_k, eps_p
+    torch.cuda.empty_cache()
+    secs, frames, lat_finite, by_stage, peak = timed_call(
+        cp, "context", num_inference_steps=TIMED_STEPS,
+        **dict(WORKLOAD, scheduler="ddim", num_frames=F_))
+    want_k1 = 10 * len(starts) * TIMED_STEPS
+    if by_stage["denoise"]["K1"] != want_k1 or by_stage["decode"]["K1"]:
+        raise SystemExit(f"context: launches {by_stage}, expected K1 "
+                         f"{want_k1} times in the denoise loop")
+    check_no_forms(by_stage, "context")
+    chunks = F_ // WORKLOAD["decode_chunk"]
+    check_gn_launches(by_stage, gn_per_call, "512", TIMED_STEPS * len(starts),
+                      chunks)
+    check_frames(frames, (F_, H, H, 3), lat_finite, "context")
+    res = {"windows": len(starts), "starts": starts, "rng": rng_res,
+           "rel_l2_window_eval": rel, "K1": by_stage["denoise"]["K1"],
+           "K2": by_stage["denoise"]["K2"], "K3": by_stage["denoise"]["K3"]}
+    return dict(secs=secs, by_stage=by_stage, peak=peak, frames=F_,
+                steps=TIMED_STEPS, chunks=chunks), res
+
+
+def ulp(x, bits: int):
+    """One ulp of each element of ``x`` at ``bits`` significant bits (8 for
+    bf16, 24 for fp32)."""
+    import torch
+
+    e = torch.frexp(x.float()).exponent
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - bits)
+
+
+def run_lora(pipe, gn_per_call) -> dict:
+    """Phase 19: a rank-8 peft adapter over every default target of the
+    UNet, from seeded factors, written with the port's .safetensors writer
+    and loaded at scale 0.8; every merged weight against the plain fp32
+    merge on the CPU; one UNet evaluation; scale 0 and unload against the
+    pristine weights."""
+    import torch
+
+    from vdx_torch.core import lora as L
+    from vdx_torch.core.safetensors_io import save_file
+
+    t0 = time.time()
+    sd = pipe.unet.state_dict()
+    targets = L.target_paths(sd, rules=pipe._conversion_rules()["unet"][0])
+    gen = torch.Generator().manual_seed(0)
+    factors, file_sd = {}, {}
+    for k in targets:
+        d_out, d_in = sd[k].shape
+        A = torch.randn((LORA_RANK, d_in), generator=gen) / d_in ** 0.5
+        B = torch.randn((d_out, LORA_RANK), generator=gen) * 0.1 / LORA_RANK ** 0.5
+        factors[k] = (A, B)
+        stem = "unet." + k[: -len(".weight")]
+        file_sd[f"{stem}.lora_A.weight"] = A
+        file_sd[f"{stem}.lora_B.weight"] = B
+    SCRATCH.mkdir(parents=True, exist_ok=True)
+    path = SCRATCH / "lora_peft.safetensors"
+    save_file(file_sd, path, metadata={"format": "pt"})
+    pristine = {k: sd[k].clone() for k in targets}
+    storage = {k: sd[k].data_ptr() for k in targets}
+    torch.cuda.synchronize()
+    t1 = time.time()
+    report = pipe.load_lora(path, scale=LORA_SCALE)
+    torch.cuda.synchronize()
+    load_s = time.time() - t1
+    path.unlink()
+    # the bar: one bf16 ulp of the merged weight (of the larger of the
+    # two, where they straddle a power of two), plus the fp32 rounding of
+    # the sum's terms (4 ulps of |W| + s |B| |A|; cuBLAS and the CPU sum
+    # the rank-8 product in other orders), which shows only where W and
+    # s * delta cancel and the result is far below its terms
+    merged = pipe.unet.state_dict()
+    worst, n_elems, n_past_ulp = 0.0, 0, 0
+    for k in targets:
+        A, B = factors[k]
+        W = pristine[k].float().cpu()
+        want = (W + torch.tensor(LORA_SCALE) * (A.T @ B.T).T).to(torch.bfloat16)
+        terms = W.abs() + LORA_SCALE * (B.abs() @ A.abs())
+        got = merged[k].cpu().float()
+        diff = (got - want.float()).abs()
+        one = ulp(torch.maximum(got.abs(), want.float().abs()), 8)
+        worst = max(worst, (diff / (one + 4 * ulp(terms, 24))).max().item())
+        n_past_ulp += int((diff > one).sum())
+        n_elems += diff.numel()
+    model_in, t_b, ctx = first_step_inputs(pipe)
+    with torch.inference_mode():
+        reset_counters()
+        eps = pipe.unet(model_in, t_b, ctx)
+        launches = read_counters()
+        finite = bool(torch.isfinite(eps).all())
+        del eps
+    pipe.set_lora_scale(0.0)
+    now = pipe.unet.state_dict()
+    scale0 = all(torch.equal(now[k], pristine[k]) for k in targets)
+    pipe.unload_lora()
+    now = pipe.unet.state_dict()
+    unloaded = all(torch.equal(now[k], pristine[k]) and now[k].data_ptr() == storage[k]
+                   for k in targets)
+    per_call = {"K1": 10, "K4": 0} | gn_per_call[("512", "unet")]
+    res = {"sites": len(targets), "converted": len(report["converted"]),
+           "skipped": len(report["skipped"]),
+           "unused_lora_keys": len(report["unused_lora_keys"]),
+           "adapter_params": sum(A.numel() + B.numel() for A, B in factors.values()),
+           "merged_elems": n_elems, "load_lora_s": load_s,
+           "max_err_over_bar": worst, "elems_past_one_bf16_ulp": n_past_ulp,
+           "eval_finite": finite,
+           "eval_launches": {k: launches[k] for k in per_call},
+           "scale0_equal_pristine": scale0, "unload_equal_pristine": unloaded}
+    log(f"[lora] rank {LORA_RANK} peft adapter at scale {LORA_SCALE}: {res} "
+        f"({time.time() - t0:.1f}s)")
+    ok = (res["converted"] == res["sites"] > 0 and not res["skipped"]
+          and not res["unused_lora_keys"] and worst <= 1.0 and finite
+          and res["eval_launches"] == per_call and scale0 and unloaded)
+    if not ok:
+        raise SystemExit(f"lora: {res}")
+    return res
+
+
+def run_checkpoints(pipe) -> dict:
+    """Phase 20: the pipeline's weights as diffusers-named .safetensors
+    files (the SD-1.5 UNet without its motion keys, the motion adapter,
+    the VAE, the text tower) through from_pretrained into a second
+    pipeline, then save_checkpoint / load_checkpoint; every tensor and one
+    UNet evaluation against the first pipeline's."""
+    import shutil
+
+    import torch
+
+    from vdx_torch.core.safetensors_io import save_file
+    from vdx_torch.pipelines import AnimateDiffPipeline
+
+    def all_equal(a, b):
+        pairs = ((a.unet, b.unet), (a.vae, b.vae), (a.text_encoder, b.text_encoder))
+        for m, n in pairs:
+            sa, sb = m.state_dict(), n.state_dict()
+            if sa.keys() != sb.keys() or not all(torch.equal(sa[k], sb[k]) for k in sa):
+                return False
+        return True
+
+    t0 = time.time()
+    d = SCRATCH / "pretrained"
+    d.mkdir(parents=True, exist_ok=True)
+    unet = pipe.unet.state_dict()
+    files = {n: d / f"{n}.safetensors" for n in ("unet", "motion", "vae", "text")}
+    save_file({k: v for k, v in unet.items() if ".motion_modules." not in k},
+              files["unet"])
+    save_file({k: v for k, v in unet.items() if ".motion_modules." in k},
+              files["motion"])
+    save_file(pipe.vae.state_dict(), files["vae"])
+    save_file(pipe.text_encoder.state_dict(), files["text"])
+    sizes = {n: f.stat().st_size for n, f in files.items()}
+    write_s = time.time() - t0
+    t1 = time.time()
+    pipe_b = AnimateDiffPipeline.from_pretrained(
+        {"unet": [str(files["unet"]), str(files["motion"])],
+         "vae": str(files["vae"]), "text": str(files["text"])},
+        unet_config=pipe.unet.config, vae_config=pipe.vae.config,
+        text_config=pipe.text_encoder.config, tokenizer=pipe.tokenizer,
+        policy=pipe.policy, device=pipe.device)
+    torch.cuda.synchronize()
+    load_s = time.time() - t1
+    shutil.rmtree(d)
+    loaded_equal = all_equal(pipe, pipe_b)
+    model_in, t_b, ctx = first_step_inputs(pipe)
+    with torch.inference_mode():
+        eval_equal = torch.equal(pipe.unet(model_in, t_b, ctx),
+                                 pipe_b.unet(model_in, t_b, ctx))
+    d2 = SCRATCH / "checkpoint"
+    t1 = time.time()
+    pipe.save_checkpoint(d2)
+    save_s = time.time() - t1
+    pipe_b.init_params(1)
+    scrambled = not all_equal(pipe, pipe_b)
+    t1 = time.time()
+    pipe_b.load_checkpoint(d2)
+    torch.cuda.synchronize()
+    reload_s = time.time() - t1
+    shutil.rmtree(d2)
+    round_trip = all_equal(pipe, pipe_b)
+    del pipe_b
+    torch.cuda.empty_cache()
+    res = {"file_bytes": sizes, "write_s": write_s, "from_pretrained_s": load_s,
+           "loaded_equal": loaded_equal, "unet_eval_equal": eval_equal,
+           "save_checkpoint_s": save_s, "load_checkpoint_s": reload_s,
+           "round_trip_equal": scrambled and round_trip}
+    log(f"[checkpoints] {res} ({time.time() - t0:.1f}s)")
+    if not (loaded_equal and eval_equal and res["round_trip_equal"]):
+        raise SystemExit(f"checkpoints: {res}")
     return res
 
 
@@ -1609,9 +1984,10 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 7. the timed call (512x512, DDIM)
+    plain512 = {}  # its latents, for phase 17
     secs, frames, lat_finite, by_stage, peak = timed_call(
-        pipe, "timed", num_inference_steps=TIMED_STEPS, scheduler="ddim",
-        **WORKLOAD)
+        pipe, "timed", keep=plain512, num_inference_steps=TIMED_STEPS,
+        scheduler="ddim", **WORKLOAD)
     if by_stage["denoise"]["K1"] != 10 * TIMED_STEPS or by_stage["decode"]["K1"]:
         raise SystemExit(f"launches {by_stage}: expected K1 {10 * TIMED_STEPS} "
                          "times in the denoise loop (10 per UNet call), none after")
@@ -1711,6 +2087,23 @@ def main() -> int:
     # 16. skip mode, dispatch segments, variable_steps, progress, attn_impl
     knobs = run_knobs(pipe)
 
+    # 17. PAB: phase 7's call with the attention broadcast
+    t0 = time.time()
+    plain512["denoise"] = paths["512"]["by_stage"]["denoise"]
+    paths["pab"], pab = run_pab(pipe, plain512, gn_per_call)
+    torch.cuda.empty_cache()
+    log(f"[pab] phase done ({time.time() - t0:.1f}s)")
+
+    # 18. context windows with FreeNoise: 32 frames
+    t0 = time.time()
+    paths["context"], context = run_context(pipe, gn_per_call)
+    torch.cuda.empty_cache()
+    log(f"[context] phase done ({time.time() - t0:.1f}s)")
+
+    # 19. LoRA, 20. checkpoints
+    lora = run_lora(pipe, gn_per_call)
+    checkpoints = run_checkpoints(pipe)
+
     # Counts are per kernel at every shape, within the row's stage of its
     # path's run: the denoise loop of a timed call (per step), its VAE
     # encode and decode (per chunk), the GN dispatch at 2560 channels, the
@@ -1751,7 +2144,8 @@ def main() -> int:
             "launches_by_stage": d["by_stage"]}
         | ({"s_per_video": d["secs"] / d["videos"]} if "videos" in d else {})
         for p, d in paths.items()},
-        "samplers": sampler_runs, "knobs": knobs,
+        "samplers": sampler_runs, "knobs": knobs, "pab": pab,
+        "context": context, "lora": lora, "checkpoints": checkpoints,
         # every flash attention counter (kernels.flash_attention
         # .launch_counts) with its launches at phase 3's edges
         "edge_launches": edge_launches,

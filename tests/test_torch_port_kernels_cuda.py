@@ -590,6 +590,6 @@ def test_port_imports_no_jax_or_vdx():
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
-            if top in ("jax", "jaxlib", "flax", "vdx"):
+            if top in ("jax", "jaxlib", "flax", "vdx", "safetensors"):
                 bad.append(f"{path.relative_to(ROOT)}: {mod}")
     assert not bad, bad

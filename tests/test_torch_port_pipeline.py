@@ -55,6 +55,7 @@ from vdx_torch.models.clip_text import CLIPTextConfig as TCC
 from vdx_torch.models.unet_motion import UNetMotionConfig as TUC
 from vdx_torch.models.vae import VAEConfig as TVC
 from vdx_torch.pipelines import AnimateDiffPipeline as TPipe
+from vdx_torch.pipelines import ContextConfig, PABConfig
 from vdx_torch.pipelines.base import _Request
 
 
@@ -343,18 +344,23 @@ def _check_surface_raises(slice_run):
     with pytest.raises(ValueError, match="unknown sampler"):
         TPipe(unet_config=TUC.tiny(), vae_config=TVC.tiny(),
               text_config=TCC.tiny(), device="cpu", scheduler="heun")
-    for kwargs, item in ((dict(pab=object()), "10b"),
-                         (dict(context=object()), "10b"),
-                         (dict(frame_shards=2), "14"), (dict(mesh=object()), "14"),
-                         (dict(seq_impl="ring"), "14")):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
+    for kwargs in (dict(frame_shards=2), dict(mesh=object()),
+                   dict(seq_impl="ring")):
+        with pytest.raises(NotImplementedError, match="item 14"):
             _tiny_port(**kwargs)
-    for call in (lambda: tp.load_lora({}), lambda: tp.set_lora_scale(0.5),
-                 tp.unload_lora, lambda: tp.save_checkpoint("ckpt"),
-                 lambda: tp.load_checkpoint("ckpt"),
-                 lambda: tp.load_pretrained({}),
-                 lambda: TPipe.from_pretrained({})):
-        with pytest.raises(NotImplementedError, match="item 10b"):
+    # PAB, context windows, LoRA and checkpoints are in (item 10b): the
+    # pipeline takes them, and rejects what vdx rejects
+    assert _tiny_port(pab=PABConfig()).pab == PABConfig()
+    assert _tiny_port(context=ContextConfig()).context == ContextConfig()
+    for call, match in ((lambda: tp.set_lora_scale(0.5), "no LoRA active"),
+                        (tp.unload_lora, "no LoRA active"),
+                        (lambda: tp.load_pretrained({}), "missing components"),
+                        (lambda: tp.load_pretrained({"clip": {}}), "unknown"),
+                        (lambda: TPipe.from_pretrained(
+                            {}, unet_config=TUC.tiny(), vae_config=TVC.tiny(),
+                            text_config=TCC.tiny(), device="cpu"),
+                         "missing components")):
+        with pytest.raises(ValueError, match=match):
             call()
 
 

@@ -37,6 +37,7 @@ from vdx.pipelines import PABConfig
 from vdx.pipelines import SkipConfig as JSkip
 from vdx_torch.core.dtypes import FP32_POLICY as TP
 from vdx_torch.models.vae import AutoencoderKL as TV
+from vdx_torch.pipelines import PABConfig as TPABConfig
 from vdx_torch.pipelines import SkipConfig
 
 
@@ -188,12 +189,10 @@ def test_video2video_rejects_what_vdx_rejects(v2v_run):
     for pipe in (jpipe, tp):
         with pytest.raises(ValueError, match="video batch 1 != prompt batch 2"):
             pipe([PROMPT, NEG], video=clip, **kw)
-    # PAB: vdx rejects it with video; the port cannot build a PAB
-    # pipeline yet (ROADMAP Queue 1 item 10b)
+    # PAB: vdx and the port reject it with video
     jpab = JPipe(unet_config=JUC.tiny(), vae_config=JVC.tiny(),
                  text_config=JCC.tiny(), policy=JP, scheduler="ddim",
                  params=v2v_run["params"], pab=PABConfig())
-    with pytest.raises(ValueError, match="PAB"):
-        jpab(PROMPT, video=clip, **kw)
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        tiny_port(pab=PABConfig())
+    for pipe in (jpab, tiny_port(pab=TPABConfig())):
+        with pytest.raises(ValueError, match="video2video does not compose with PAB"):
+            pipe(PROMPT, video=clip, **kw)

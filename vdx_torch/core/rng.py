@@ -1,6 +1,7 @@
 """Seeded noise that equals vdx's (port of vdx/core/rng.py's ``as_key`` and
 ``noise_for_shape``: ``jax.random.normal(jax.random.PRNGKey(seed), shape,
-float32)``), on any torch device.
+float32)``), on any torch device, and the keyed draws FreeNoise takes
+(``jax.random.split``, ``normal`` from a key, ``permutation``).
 
 vdx draws its initial latents from JAX's threefry2x32 generator, so the
 port computes the same function instead of ``torch.randn``: a seed gives
@@ -10,6 +11,10 @@ vdx's video, and the CPU and the card give the same noise.
   the seed is taken as a 32-bit integer, so the key is
   [0, seed mod 2^32]. (With x64 on, JAX would put seed >> 32 in the
   first word; vdx never enables it.)
+* Split (the same flag): key i of ``split(key, n)`` is the pair
+  threefry2x32(key, (0, i)).
+* Permutation of n: rounds of (split, 32 bits an element from the second
+  key, a stable sort of the elements by their bits).
 * Bits (``jax_threefry_partitionable`` True, JAX's default): element i of
   the flattened shape gets the counter pair (i >> 32, i mod 2^32);
   threefry2x32(key, counter) gives (b1, b2) and the element's 32 bits are
@@ -73,14 +78,43 @@ def threefry2x32(key: tuple, x0: torch.Tensor, x1: torch.Tensor):
     return x0, x1
 
 
+def split(key: tuple, num: int = 2) -> list:
+    """``jax.random.split(key, num)`` (partitionable threefry): key i is
+    threefry2x32(key, (0, i)), computed on the host -> ``num`` keys."""
+    idx = torch.arange(num, dtype=torch.int64)
+    b1, b2 = threefry2x32(key, torch.zeros_like(idx), idx)
+    return [(int(a), int(b)) for a, b in zip(b1.tolist(), b2.tolist())]
+
+
+def key_bits(key: tuple, shape: Sequence[int],
+             device: Union[str, torch.device] = "cpu") -> torch.Tensor:
+    """``jax.random.bits(key, shape, uint32)`` as int64 values in
+    [0, 2^32)."""
+    n = math.prod(shape)
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    b1, b2 = threefry2x32(key, idx >> 32, idx & _M32)
+    return (b1 ^ b2).reshape(tuple(shape))
+
+
 def random_bits(seed: int, shape: Sequence[int],
                 device: Union[str, torch.device] = "cpu") -> torch.Tensor:
     """``jax.random.bits(PRNGKey(seed), shape, uint32)`` as int64 values in
     [0, 2^32)."""
-    n = math.prod(shape)
-    idx = torch.arange(n, dtype=torch.int64, device=device)
-    b1, b2 = threefry2x32(prng_key(seed), idx >> 32, idx & _M32)
-    return (b1 ^ b2).reshape(tuple(shape))
+    return key_bits(prng_key(seed), shape, device)
+
+
+def permutation(key: tuple, n: int) -> torch.Tensor:
+    """``jax.random.permutation(key, n)`` on the host (int64 [n]): per
+    round (ceil(3 ln n / ln(2^32 - 1)) of them, one for n < 1626) the key
+    splits, the second key draws 32 bits an element, and the elements
+    are stably sorted by those bits."""
+    rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(np.iinfo(np.uint32).max)))
+    x = torch.arange(n, dtype=torch.int64)
+    for _ in range(rounds):
+        key, sub = split(key)
+        order = torch.sort(key_bits(sub, (n,)), stable=True).indices
+        x = x[order]
+    return x
 
 
 def _erfinv_f32(x: torch.Tensor) -> torch.Tensor:
@@ -99,11 +133,10 @@ def _erfinv_f32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() == 1.0, x * torch.finfo(torch.float32).max, p * x)
 
 
-def normal(seed: int, shape: Sequence[int],
-           device: Union[str, torch.device] = "cpu") -> torch.Tensor:
-    """``jax.random.normal(jax.random.PRNGKey(seed), shape, float32)`` on
-    ``device``."""
-    bits = random_bits(seed, shape, device)
+def key_normal(key: tuple, shape: Sequence[int],
+               device: Union[str, torch.device] = "cpu") -> torch.Tensor:
+    """``jax.random.normal(key, shape, float32)`` on ``device``."""
+    bits = key_bits(key, shape, device)
     mant = ((bits >> 9) | 0x3F800000).to(torch.int32)
     f = mant.view(torch.float32) - 1.0
     lo = torch.tensor(_LO, dtype=torch.float32, device=device)
@@ -111,6 +144,13 @@ def normal(seed: int, shape: Sequence[int],
     u = torch.clamp_min(f * span + lo, _LO)
     return torch.tensor(math.sqrt(2.0), dtype=torch.float32, device=device) \
         * _erfinv_f32(u)
+
+
+def normal(seed: int, shape: Sequence[int],
+           device: Union[str, torch.device] = "cpu") -> torch.Tensor:
+    """``jax.random.normal(jax.random.PRNGKey(seed), shape, float32)`` on
+    ``device``."""
+    return key_normal(prng_key(seed), shape, device)
 
 
 def normal_batch(seeds: Sequence[int], shape: Sequence[int],

@@ -11,8 +11,15 @@ Module names follow diffusers' UNetMotionModel (down_blocks.i.resnets.j,
 ``attn_impl`` picks the spatial and cross attention implementation (the
 motion modules keep ``auto``, as vdx's local blocks); ``freeu`` re-weights
 every (backbone, skip) pair of up stages 0 and 1 before their concat
-(nn/freeu.py). PAB and frame-sharded temporal attention wait for ROADMAP
-Queue 1 items 10b and 14.
+(nn/freeu.py). Under Pyramid Attention Broadcast the forward takes
+``pab_refresh`` ({"spatial", "cross", "temporal"}: a Python bool, or None
+for a type computed every step and never cached) and ``pab_cache`` (the
+previous call's outputs, keyed by each attention module's qualified
+name; None for a new one) and returns (output, cache), the cache updated
+in place. attn1 of a spatial block takes "spatial", attn2 "cross", both
+attentions of a motion module "temporal", in the mid block as in the
+others (vdx/models/unet_motion.py).
+Frame-sharded temporal attention waits for ROADMAP Queue 1 item 14.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ import torch
 from torch import nn
 
 from vdx_torch.core.dtypes import DEFAULT_POLICY, Policy, exact_fp32_method
+from vdx_torch.nn.attention import Attention
 from vdx_torch.nn.embeddings import TimestepEmbedding, get_timestep_embedding
 from vdx_torch.nn.freeu import FreeUConfig, apply_freeu
 from vdx_torch.nn.layers import Conv2d
@@ -99,12 +107,14 @@ class _Stage(nn.Module):
             self.upsamplers = nn.ModuleList(
                 [Upsample2D(channels, channels, policy)])
 
-    def layer(self, i, x, temb, context, num_frames):
+    def layer(self, i, x, temb, context, num_frames, refresh=None, cache=None):
         """One (resnet -> spatial -> cross -> motion) unit."""
+        r = refresh or {}
         x = self.resnets[i](x, temb)
         if self.attentions is not None:
-            x = self.attentions[i](x, context)
-        return self.motion_modules[i](x, num_frames)
+            x = self.attentions[i](x, context, r.get("spatial"), r.get("cross"),
+                                   cache)
+        return self.motion_modules[i](x, num_frames, r.get("temporal"), cache)
 
 
 class _MidBlock(nn.Module):
@@ -164,12 +174,17 @@ class UNetMotion(nn.Module):
         self.conv_norm_out = GroupNormModule(c0, 32, 1e-5, with_silu=True,
                                              policy=policy)
         self.conv_out = Conv2d(c0, cfg.out_channels, 3, padding=1, policy=policy)
+        for name, m in self.named_modules():
+            if isinstance(m, Attention):
+                m.pab_key = name
 
     @exact_fp32_method
     def forward(self, sample: torch.Tensor, timestep: torch.Tensor,
-                context: torch.Tensor) -> torch.Tensor:
+                context: torch.Tensor, *, pab_refresh: Optional[dict] = None,
+                pab_cache: Optional[dict] = None):
         """sample [B, F, H, W, C_in], timestep scalar or [B], context
-        [B, S_text, D] -> [B, F, H, W, C_out] in the output dtype."""
+        [B, S_text, D] -> [B, F, H, W, C_out] in the output dtype; with
+        ``pab_refresh``, -> (that, the PAB cache)."""
         cfg = self.config
         cd = self.policy.compute_dtype
         B, F_, H, W, Cin = sample.shape
@@ -182,11 +197,15 @@ class UNetMotion(nn.Module):
             get_timestep_embedding(t, cfg.block_out_channels[0]))
         temb = temb.repeat_interleave(F_, dim=0)  # [B*F, 4*c0]
 
+        r = pab_refresh
+        # updated in place: a refreshed site's old output is freed as the
+        # new one is stored, so the cache never exists twice
+        cache = None if r is None else ({} if pab_cache is None else pab_cache)
         x = self.conv_in(x)
         residuals = [x]
         for blk in self.down_blocks:
             for li in range(len(blk.resnets)):
-                x = blk.layer(li, x, temb, context, F_)
+                x = blk.layer(li, x, temb, context, F_, r, cache)
                 residuals.append(x)
             if hasattr(blk, "downsamplers"):
                 x = blk.downsamplers[0](x)
@@ -194,8 +213,10 @@ class UNetMotion(nn.Module):
 
         mid = self.mid_block
         x = mid.resnets[0](x, temb)
-        x = mid.attentions[0](x, context)
-        x = mid.motion_modules[0](x, F_)
+        rm = r or {}
+        x = mid.attentions[0](x, context, rm.get("spatial"), rm.get("cross"),
+                              cache)
+        x = mid.motion_modules[0](x, F_, rm.get("temporal"), cache)
         x = mid.resnets[1](x, temb)
 
         for bi, blk in enumerate(self.up_blocks):
@@ -204,10 +225,10 @@ class UNetMotion(nn.Module):
                 if self.freeu is not None:
                     x, skip = apply_freeu(bi, x, skip, self.freeu)
                 x = torch.cat([x, skip], dim=-1)
-                x = blk.layer(li, x, temb, context, F_)
+                x = blk.layer(li, x, temb, context, F_, r, cache)
             if hasattr(blk, "upsamplers"):
                 x = blk.upsamplers[0](x)
 
         x = self.conv_out(self.conv_norm_out(x))
-        x = self.policy.cast_to_output(x)
-        return x.reshape(B, F_, H, W, cfg.out_channels)
+        x = self.policy.cast_to_output(x).reshape(B, F_, H, W, cfg.out_channels)
+        return x if r is None else (x, cache)

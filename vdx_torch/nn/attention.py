@@ -7,6 +7,13 @@ Attention: to_q/to_k/to_v without bias, to_out.0 with bias, scale
 cross sites (vdx's ``Attention.attn_impl``); the motion modules keep
 ``auto``.
 
+Pyramid Attention Broadcast (vdx's ``pab`` flag and ``pab_cache``
+collection): ``refresh`` None computes; True computes and stores the
+output (after to_out, in the compute dtype) in ``cache`` under the
+module's ``pab_key``; False returns the stored output and runs no
+projection and no attention. The cache is a dict the caller owns and
+passes down, never state of the module, so no request sees another's.
+
 FeedForward: GEGLU — Linear(C -> 8C), split, x * gelu(gate), Linear(4C -> C).
 """
 
@@ -37,9 +44,20 @@ class Attention(nn.Module):
         self.to_k = Dense(kv_dim, inner, bias=False, policy=policy)
         self.to_v = Dense(kv_dim, inner, bias=False, policy=policy)
         self.to_out = nn.ModuleList([Dense(inner, query_dim, policy=policy)])
+        #: the module's key in a PAB cache (UNetMotion sets its qualified name)
+        self.pab_key = ""
 
-    def forward(self, x: torch.Tensor,
-                context: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
+                refresh: Optional[bool] = None,
+                cache: Optional[dict] = None) -> torch.Tensor:
+        if refresh is None:
+            return self._compute(x, context)
+        if refresh:
+            cache[self.pab_key] = self._compute(x, context)
+        return cache[self.pab_key]
+
+    def _compute(self, x: torch.Tensor,
+                 context: Optional[torch.Tensor]) -> torch.Tensor:
         ctx = x if context is None else context
         if ctx.shape[1] == 1 and not self.attn_impl.startswith("ring"):
             # Single-KV attention: the softmax over one key is identically

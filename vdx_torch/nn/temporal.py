@@ -7,12 +7,15 @@ vdx/nn/temporal.py, the local mode: all frames on one device).
                                  self-attention, GEGLU ff)
     -> proj_out (Linear) -> +residual
 
-Frame-sharded execution (ring / Ulysses) waits for the parallel slice.
+Under PAB, ``refresh`` reaches both attentions of every block
+(nn/attention.py). Frame-sharded execution (ring / Ulysses) waits for the
+parallel slice.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 from torch import nn
@@ -39,11 +42,12 @@ class TemporalBlock(nn.Module):
         self.norm3 = LayerNormF32(dim, policy=policy)
         self.ff = FeedForward(dim, policy=policy)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:  # [P, F, C]
+    def forward(self, x: torch.Tensor, refresh=None,
+                cache: Optional[dict] = None) -> torch.Tensor:  # [P, F, C]
         pe = sinusoidal_positional_encoding(x.shape[1], self.dim,
                                             x.device).to(x.dtype)
-        x = x + self.attn1(self.norm1(x) + pe[None])
-        x = x + self.attn2(self.norm2(x) + pe[None])
+        x = x + self.attn1(self.norm1(x) + pe[None], refresh=refresh, cache=cache)
+        x = x + self.attn2(self.norm2(x) + pe[None], refresh=refresh, cache=cache)
         return x + self.ff(self.norm3(x))
 
 
@@ -62,7 +66,8 @@ class TemporalTransformer3D(nn.Module):
         ])
         self.proj_out = Dense(channels, channels, policy=policy)
 
-    def forward(self, x: torch.Tensor, num_frames: int) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, num_frames: int, refresh=None,
+                cache: Optional[dict] = None) -> torch.Tensor:
         BF, H, W, C = x.shape
         F_ = num_frames
         B = BF // F_
@@ -71,7 +76,7 @@ class TemporalTransformer3D(nn.Module):
         h = h.permute(0, 2, 3, 1, 4).reshape(B * H * W, F_, C)
         h = self.proj_in(h)
         for blk in self.transformer_blocks:
-            h = blk(h)
+            h = blk(h, refresh, cache)
         h = self.proj_out(h)
         h = h.reshape(B, H, W, F_, C).permute(0, 3, 1, 2, 4).reshape(BF, H, W, C)
         return h + residual

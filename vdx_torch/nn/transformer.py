@@ -4,7 +4,8 @@ vdx/nn/transformer.py).
 SpatialTransformer: GN(32, 1e-6) -> 1x1 proj_in -> [B, H*W, C] ->
 BasicTransformerBlock (self-attn, text cross-attn, GEGLU ff) -> 1x1
 proj_out -> +residual. ``attn_impl`` reaches both attentions of every
-block (vdx/nn/transformer.py).
+block (vdx/nn/transformer.py). Under PAB, ``refresh_self`` routes to
+attn1 and ``refresh_cross`` to attn2 (nn/attention.py).
 """
 
 from __future__ import annotations
@@ -47,10 +48,12 @@ class BasicTransformerBlock(nn.Module):
         self.norm3 = LayerNormF32(dim, policy=policy)
         self.ff = FeedForward(dim, policy=policy)
 
-    def forward(self, x: torch.Tensor,
-                context: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = x + self.attn1(self.norm1(x))
-        x = x + self.attn2(self.norm2(x), context)
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
+                refresh_self=None, refresh_cross=None,
+                cache: Optional[dict] = None) -> torch.Tensor:
+        x = x + self.attn1(self.norm1(x), refresh=refresh_self, cache=cache)
+        x = x + self.attn2(self.norm2(x), context, refresh=refresh_cross,
+                           cache=cache)
         return x + self.ff(self.norm3(x))
 
 
@@ -71,10 +74,12 @@ class SpatialTransformer(nn.Module):
         ])
         self.proj_out = Conv2d(channels, channels, 1, policy=policy)
 
-    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, context: torch.Tensor,
+                refresh_self=None, refresh_cross=None,
+                cache: Optional[dict] = None) -> torch.Tensor:
         B, H, W, C = x.shape
         residual = x
         h = self.proj_in(self.norm(x)).reshape(B, H * W, C)
         for blk in self.transformer_blocks:
-            h = blk(h, context)
+            h = blk(h, context, refresh_self, refresh_cross, cache)
         return self.proj_out(h.reshape(B, H, W, C)) + residual

@@ -1,4 +1,6 @@
-from vdx_torch.pipelines.base import (AnimateDiffPipeline, PipelineOutput,
-                                      SkipConfig)
+from vdx_torch.pipelines.base import (AnimateDiffPipeline, PABConfig,
+                                      PipelineOutput, SkipConfig)
+from vdx_torch.pipelines.context import ContextConfig
 
-__all__ = ["AnimateDiffPipeline", "PipelineOutput", "SkipConfig"]
+__all__ = ["AnimateDiffPipeline", "ContextConfig", "PABConfig",
+           "PipelineOutput", "SkipConfig"]

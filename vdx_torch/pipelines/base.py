@@ -26,28 +26,68 @@ vdx's request surface: prompt batches with per-video seeds, per-step
 guidance schedules (indexed on the device), ``guidance_rescale``,
 ``sampler_configs``, ``variable_steps``, ``progress``, ``attn_impl``,
 FreeU, skip turbo mode (``SkipConfig``, ``PipelineOutput.n_evals``),
+Pyramid Attention Broadcast (``PABConfig``), context windows with
+FreeNoise (``ContextConfig``, pipelines/context.py), LoRA adapters
+(``load_lora``, core/lora.py), checkpoints (``load_pretrained``,
+``from_pretrained``, ``save_checkpoint``, core/checkpoint.py),
 ``dispatch_steps`` segments, video2video and ``output_type="device"``.
-PAB, context windows (ROADMAP Queue 1 item 10b), LoRA and checkpoints
-(10b), and frame sharding (item 14) raise ``NotImplementedError``.
+Frame sharding (ROADMAP Queue 1 item 14) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import pathlib
 import warnings
 from typing import Any, Callable, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
-from vdx_torch.core import rng
+from vdx_torch.core import checkpoint as ckpt
+from vdx_torch.core import convert, rng
+from vdx_torch.core import lora as L
 from vdx_torch.core.dtypes import DEFAULT_POLICY, Policy
+from vdx_torch.core.safetensors_io import load_file, save_file
 from vdx_torch.models.clip_text import CLIPTextConfig, CLIPTextModel
 from vdx_torch.models.tokenizer import load_tokenizer
 from vdx_torch.models.unet_motion import UNetMotion, UNetMotionConfig
 from vdx_torch.models.vae import AutoencoderKL, VAEConfig
+from vdx_torch.pipelines.context import (ContextConfig, make_freenoise_maker,
+                                         make_windowed_apply)
 from vdx_torch.schedulers import get_sampler, is_multistep, make_tables_for
 from vdx_torch.schedulers.common import cfg_combine, pad_tables
+
+
+@dataclasses.dataclass(frozen=True)
+class PABConfig:
+    """Pyramid Attention Broadcast schedule (vdx's ``PABConfig``): each
+    attention type's output is reused between refreshes, cross-attention
+    longest, spatial shortest; the first and last steps always refresh.
+    An interval of 1 computes that type every step and caches nothing."""
+
+    spatial_interval: int = 2
+    temporal_interval: int = 4
+    cross_interval: int = 6
+    #: joint text+video attention (CogVideoX-class DiTs, ROADMAP item 11);
+    #: UNetMotion has none
+    joint_interval: int = 2
+    warmup_steps: int = 2
+    cooldown_steps: int = 2
+
+
+def pab_refresh_flags(pab: PABConfig, i: int, num_steps: int) -> dict:
+    """Step i's refresh flag per attention type (Python bools, from the
+    global step index): ``hot or i % interval == 0``, hot in the warm-up
+    and cool-down; None for an interval of 1. Step 0 always refreshes."""
+    hot = i < pab.warmup_steps or i >= num_steps - pab.cooldown_steps
+
+    def flag(interval):
+        return None if interval == 1 else bool(hot or i % interval == 0)
+
+    return {"spatial": flag(pab.spatial_interval),
+            "temporal": flag(pab.temporal_interval),
+            "cross": flag(pab.cross_interval)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,6 +181,8 @@ class _Request:
     #: the schedule's step count N (progress's n, skip's cool-down)
     num_steps: int
     t_start: int = 0
+    #: the denoiser: the UNet, or its context-windowed wrapper
+    unet: Optional[Callable] = None
 
     def scale_at(self, i: int):
         g = self.guidance_scale
@@ -151,8 +193,8 @@ class _Request:
 class _Carry:
     """The loop's state between steps (and between dispatch segments):
     the latents, the multistep sampler's state, skip mode's previous
-    output, scaled latents and accumulated drift, and the evaluations
-    made so far."""
+    output, scaled latents and accumulated drift, the evaluations made so
+    far, and PAB's attention cache."""
 
     latents: torch.Tensor
     sampler_state: Any = None
@@ -160,12 +202,7 @@ class _Carry:
     prev_sig: Optional[torch.Tensor] = None
     accum: Optional[torch.Tensor] = None
     n_evals: int = 0
-
-
-def _not_yet(what: str, item: str):
-    def method(*args, **kwargs):
-        raise NotImplementedError(f"{what} comes with ROADMAP Queue 1 item {item}")
-    return method
+    pab_cache: Optional[dict] = None
 
 
 class AnimateDiffPipeline:
@@ -180,9 +217,9 @@ class AnimateDiffPipeline:
         policy: Policy = DEFAULT_POLICY,
         scheduler: str = "euler",
         attn_impl: str = "auto",
-        pab=None,
+        pab: Optional[PABConfig] = None,
         skip: Optional[SkipConfig] = None,
-        context=None,
+        context: Optional[ContextConfig] = None,
         frame_shards: int = 1,
         seq_impl: str = "ulysses",
         mesh=None,
@@ -199,11 +236,6 @@ class AnimateDiffPipeline:
         if context is not None and pab is not None:
             raise ValueError("context windows and PAB are incompatible: PAB's "
                              "attention caches are sized per model call")
-        if pab is not None:
-            raise NotImplementedError("PAB comes with ROADMAP Queue 1 item 10b")
-        if context is not None:
-            raise NotImplementedError(
-                "context windows (FreeNoise) come with ROADMAP Queue 1 item 10b")
         if frame_shards != 1 or mesh is not None or seq_impl != "ulysses":
             raise NotImplementedError(
                 "frame sharding (frame_shards, seq_impl, mesh) comes with "
@@ -215,7 +247,12 @@ class AnimateDiffPipeline:
         get_sampler(scheduler)  # ValueError on an unknown name
         self.scheduler = scheduler
         self.policy = policy
+        self.pab = pab
         self.skip = skip
+        # long clips: a request past context.frames evaluates the UNet per
+        # overlapping window and blends (pipelines/context.py); shorter
+        # requests run the exact context-free path
+        self.context = context
         self.variable_steps = variable_steps
         self.progress_callback = progress
         # CFG std-rescale (Lin et al.); 0.0 = plain CFG
@@ -239,6 +276,9 @@ class AnimateDiffPipeline:
             self.unet.to(memory_format=torch.channels_last)
             self.vae.to(memory_format=torch.channels_last)
         self._tables = {}
+        #: component -> {"adapter", "pristine" tensors, "scale"}
+        self._lora_active = {}
+        self._has_params = False
 
     # ------------------------------------------------------------------
     # parameters
@@ -254,19 +294,165 @@ class AnimateDiffPipeline:
         """Fill every component with seeded random weights (see
         :func:`random_init_`); returns the parameter count."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
+        self._has_params = True
         return sum(random_init_(m, gen)
                    for m in (self.unet, self.vae, self.text_encoder))
 
+    def _components(self) -> dict:
+        return {"unet": self.unet, "vae": self.vae, "text": self.text_encoder}
+
     def load_state_dicts(self, state_dicts: dict) -> None:
         """{"unet" | "vae" | "text": state_dict} with diffusers names."""
-        modules = {"unet": self.unet, "vae": self.vae, "text": self.text_encoder}
+        modules = self._components()
         for name, sd in state_dicts.items():
             modules[name].load_state_dict(sd, strict=True)
+        self._has_params = True
 
-    load_lora = set_lora_scale = unload_lora = _not_yet("LoRA", "10b")
-    save_checkpoint = load_checkpoint = load_pretrained = _not_yet(
-        "checkpoints", "10b")
-    from_pretrained = classmethod(_not_yet("checkpoints", "10b"))
+    # ------------------------------------------------------------------
+    # checkpoints
+    # ------------------------------------------------------------------
+    def _conversion_rules(self) -> dict:
+        """{component: (rules, allowed missing substrings)}: the port's
+        copy of vdx's rule tables, which name every weight in both."""
+        return {"unet": (convert.unet_motion_rules(self.unet.config), ()),
+                "vae": (convert.vae_rules(self.vae.config), ()),
+                "text": (convert.clip_text_rules(self.text_encoder.config), ())}
+
+    def load_pretrained(self, sources: dict, strict: bool = True) -> dict:
+        """Fill the components from torch ``.safetensors`` checkpoints
+        (vdx's ``load_pretrained``). ``sources``: {component: path |
+        [paths] | state dict}; several paths of one component merge into
+        one state dict (the SD-1.5 UNet and the motion adapter), and
+        overlapping keys raise. strict requires every component and every
+        weight; otherwise what is not supplied keeps its value (seeded
+        random weights from seed 0 if the pipeline had none). Tensors are
+        cast to each parameter's dtype. Returns {component: report} with
+        vdx's keys ``missing``, ``shape_errors``,
+        ``unused_checkpoint_keys``; nothing is copied unless every
+        component converts."""
+        specs = self._conversion_rules()
+        unknown = sorted(set(sources) - set(specs))
+        if unknown:
+            raise ValueError(f"unknown components {unknown}; "
+                             f"{type(self).__name__} takes {sorted(specs)}")
+        if strict:
+            absent = sorted(set(specs) - set(sources))
+            if absent:
+                raise ValueError(f"missing components {absent} (pass "
+                                 "strict=False to keep init values for them)")
+        modules = self._components()
+        converted, reports = {}, {}
+        for comp, paths in sources.items():
+            rules, allowed_missing = specs[comp]
+            sd = ckpt.merge_sources(comp, paths, self.device)
+            converted[comp], report = ckpt.convert_checkpoint(
+                sd, modules[comp].state_dict(), rules)
+            hard = [m for m in report["missing"]
+                    if not any(a in m for a in allowed_missing)]
+            if strict and (hard or report["shape_errors"]):
+                raise ValueError(f"{comp}: conversion failed:\n"
+                                 + "\n".join((hard + report["shape_errors"])[:20]))
+            reports[comp] = report
+        if not self._has_params and not strict:
+            self.init_params(0)
+        for comp, tensors in converted.items():
+            modules[comp].load_state_dict(
+                {k: torch.as_tensor(v) for k, v in tensors.items()}, strict=False)
+        self._has_params = True
+        return reports
+
+    @classmethod
+    def from_pretrained(cls, sources: dict, strict: bool = True, **kwargs):
+        """Build the pipeline and :meth:`load_pretrained` into it."""
+        pipe = cls(**kwargs)
+        pipe.load_pretrained(sources, strict=strict)
+        return pipe
+
+    def save_checkpoint(self, path) -> None:
+        """Every component's weights into the directory ``path`` (made if
+        absent), one ``<component>.safetensors`` each in its own dtypes.
+        vdx writes an Orbax directory, which the card's machine cannot
+        read or write (no ``orbax`` there: ROADMAP Queue 3, F10)."""
+        path = pathlib.Path(path)
+        path.mkdir(parents=True, exist_ok=True)
+        for name, module in self._components().items():
+            save_file(module.state_dict(), path / f"{name}.safetensors",
+                      metadata={"format": "pt", "component": name})
+
+    def load_checkpoint(self, path) -> None:
+        """The weights of a :meth:`save_checkpoint` directory (names and
+        shapes checked by ``load_state_dict``)."""
+        path = pathlib.Path(path)
+        for name, module in self._components().items():
+            module.load_state_dict(
+                load_file(path / f"{name}.safetensors", self.device), strict=True)
+        self._has_params = True
+
+    # ------------------------------------------------------------------
+    # LoRA adapters
+    # ------------------------------------------------------------------
+    def load_lora(self, source, scale: float = 1.0, component: str = None,
+                  targets=None, strict: bool = True) -> Optional[dict]:
+        """Attach a LoRA adapter to one component (default the UNet).
+        ``source``: a ``.safetensors`` path, a torch LoRA state dict (peft,
+        old diffusers processor or kohya keys), or an adapter tree
+        (core/lora.py). The adapted weights become ``W + scale * delta``
+        (fp32, cast back); loading replaces any adapter already active;
+        the pristine tensors are kept, so ``unload_lora`` and
+        ``set_lora_scale`` are exact. Returns the conversion report for
+        a torch state dict."""
+        component = component or "unet"
+        targets = tuple(targets or L.DEFAULT_TARGETS)
+        module = self._components()[component]
+        report = None
+        if not isinstance(source, dict) or L.is_lora_state_dict(source):
+            if not isinstance(source, dict):
+                source = load_file(source)
+            source, report = L.convert_lora_checkpoint(
+                source, module.state_dict(), targets=targets, strict=strict,
+                rules=self._conversion_rules()[component][0])
+        self._lora_restore(component)  # drop any active adapter
+        params = dict(module.named_parameters())
+        self._lora_active[component] = {
+            "adapter": source,
+            "pristine": {p: params[p].data for p in source if p in params},
+            "scale": float(scale)}
+        self._lora_merge(component)
+        return report
+
+    def set_lora_scale(self, scale: float, component: str = None) -> None:
+        """Re-merge the active adapter at a new scale, from the pristine
+        weights (scales never accumulate rounding)."""
+        component = component or "unet"
+        if component not in self._lora_active:
+            raise ValueError(f"no LoRA active on {component!r}")
+        self._lora_active[component]["scale"] = float(scale)
+        self._lora_restore(component)
+        self._lora_merge(component)
+
+    def unload_lora(self, component: str = None) -> None:
+        """Detach the adapter: the pristine tensors go back, bit for bit."""
+        component = component or "unet"
+        if component not in self._lora_active:
+            raise ValueError(f"no LoRA active on {component!r}")
+        self._lora_restore(component)
+        del self._lora_active[component]
+
+    def _lora_restore(self, component: str) -> None:
+        state = self._lora_active.get(component)
+        if state is None:
+            return
+        params = dict(self._components()[component].named_parameters())
+        for p, t in state["pristine"].items():
+            params[p].data = t
+
+    def _lora_merge(self, component: str) -> None:
+        state = self._lora_active[component]
+        params = dict(self._components()[component].named_parameters())
+        merged = L.merge_lora({p: t.data for p, t in params.items()},
+                              state["adapter"], state["scale"])
+        for p, t in merged.items():
+            params[p].data = t
 
     # ------------------------------------------------------------------
     # stages
@@ -314,32 +500,52 @@ class AnimateDiffPipeline:
 
     def initial_noise(self, latent_shape, seed: Union[int, Sequence[int]]
                       ) -> torch.Tensor:
-        """vdx's initial noise (the same fp32 values on the CPU and on the
-        card, vdx_torch.core.rng). For B = latent_shape[0] > 1, video b
-        draws from its own seed; a scalar seed serves every video."""
+        """vdx's initial noise (vdx_torch.core.rng: the same threefry bits
+        on the CPU and on the card). For B = latent_shape[0] > 1, video b
+        draws from its own seed; a scalar seed serves every video. Under
+        ``context`` with FreeNoise and a clip past one window, the noise
+        is FreeNoise's (pipelines/context.py)."""
         B = latent_shape[0]
         if B == 1:
             if isinstance(seed, (list, tuple)):
                 (seed,) = seed
-            return rng.normal(int(seed), latent_shape, self.device)
-        seeds = list(seed) if isinstance(seed, (list, tuple)) else [seed] * B
-        if len(seeds) != B:  # vdx's exception type (an assert in _seed_keys)
-            raise AssertionError(f"got {len(seeds)} seeds for {B} prompts")
-        return rng.normal_batch([int(s) for s in seeds], latent_shape[1:],
-                                self.device)
+            seeds = [int(seed)]
+        else:
+            seeds = list(seed) if isinstance(seed, (list, tuple)) else [seed] * B
+            if len(seeds) != B:  # vdx's exception type (an assert in _seed_keys)
+                raise AssertionError(f"got {len(seeds)} seeds for {B} prompts")
+            seeds = [int(s) for s in seeds]
+        ctx = self.context
+        if ctx is not None and ctx.freenoise and latent_shape[1] > ctx.frames:
+            make = make_freenoise_maker(latent_shape, ctx.frames, self.device)
+            return make([rng.prng_key(s) for s in seeds])
+        if B == 1:
+            return rng.normal(seeds[0], latent_shape, self.device)
+        return rng.normal_batch(seeds, latent_shape[1:], self.device)
 
-    def _eval(self, req: _Request, latents: torch.Tensor, i: int) -> torch.Tensor:
+    def _eval(self, req: _Request, latents: torch.Tensor, i: int,
+              carry: Optional[_Carry] = None) -> torch.Tensor:
         """One CFG-batched denoiser evaluation at step i (a Python int: no
-        host synchronisation); calls ``progress(i, N)``."""
+        host synchronisation); calls ``progress(i, N)``. Under PAB (given
+        the loop's ``carry``) the UNet runs with step i's refresh flags
+        and the carry's attention cache, and, as vdx's PAB program,
+        reports no progress."""
         sampler = get_sampler(req.scheduler)
         model_in = torch.cat([latents, latents]) if req.guidance else latents
         model_in = sampler.scale_model_input(model_in, i, req.tables)
         t_b = req.tables.timesteps[i].expand(model_in.shape[0])
-        eps = self.unet(model_in, t_b, req.context)
+        pab = self.pab is not None and carry is not None
+        if pab:
+            eps, carry.pab_cache = self.unet(
+                model_in, t_b, req.context,
+                pab_refresh=pab_refresh_flags(self.pab, i, req.num_steps),
+                pab_cache=carry.pab_cache)
+        else:
+            eps = (req.unet or self.unet)(model_in, t_b, req.context)
         if req.guidance:
             u, c = eps.chunk(2)
             eps = cfg_combine(u, c, req.scale_at(i), self.guidance_rescale)
-        if self.progress_callback is not None:
+        if self.progress_callback is not None and not pab:
             self.progress_callback(i, req.num_steps)
         return eps
 
@@ -356,9 +562,9 @@ class AnimateDiffPipeline:
     def denoise_step(self, latents: torch.Tensor, i: int, context: torch.Tensor,
                      guidance_scale, guidance: bool, scheduler: str, tables,
                      state=None):
-        """One CFG-batched UNet evaluation and sampler update at step i.
-        -> (latents, state); ``state`` is the multistep sampler's carry,
-        None for the others."""
+        """One CFG-batched UNet evaluation and sampler update at step i
+        (no context windows, no PAB cache). -> (latents, state); ``state``
+        is the multistep sampler's carry, None for the others."""
         req = _Request(context, guidance, guidance_scale, scheduler, tables,
                        self._sampler_cfg(scheduler), len(tables.timesteps))
         carry = _Carry(latents, state)
@@ -369,7 +575,7 @@ class AnimateDiffPipeline:
         """Steps [a, b) of the schedule on ``carry``, in place."""
         if self.skip is None:
             for i in range(a, b):
-                self._step(req, carry, self._eval(req, carry.latents, i), i)
+                self._step(req, carry, self._eval(req, carry.latents, i, carry), i)
             return
         # Skip turbo mode (vdx's scan body): the drift test is read on the
         # host, one scalar per step that is not a forced evaluation.
@@ -394,7 +600,9 @@ class AnimateDiffPipeline:
         """The denoise loop from ``latents`` over steps [req.t_start, N).
         With ``dispatch_steps`` = K it runs as segments [0, K), [K, 2K),
         ... that hand the carry on, with no host sync between them (vdx's
-        segmented dispatch; the same operations, so the same bits)."""
+        segmented dispatch; the same operations, so the same bits). PAB's
+        attention cache rides the carry too: step 0 fills it, and every
+        refresh flag comes from the global step index."""
         carry = _Carry(latents)
         if is_multistep(req.scheduler):
             carry.sampler_state = get_sampler(req.scheduler).init_state(latents)
@@ -461,6 +669,8 @@ class AnimateDiffPipeline:
         N = num_inference_steps
         t_start = 0
         if video is not None:
+            if self.pab is not None:
+                raise ValueError("video2video does not compose with PAB")
             if is_multistep(scheduler):
                 raise ValueError("video2video supports ddim/euler/edm samplers "
                                  "(a multistep state assumes a full trajectory)")
@@ -475,6 +685,8 @@ class AnimateDiffPipeline:
             _, num_frames, height, width = video.shape[:4]
             # SDEdit truncation: at least one step for any strength > 0
             t_start = N - min(max(int(N * strength), 1), N)
+        if self.pab is not None and is_multistep(scheduler):
+            raise ValueError("PAB turbo mode supports ddim/euler/edm samplers")
         B = 1 if isinstance(prompt, str) else len(prompt)
         if video is not None and video.shape[0] != B:
             raise ValueError(f"video batch {video.shape[0]} != prompt batch {B}")
@@ -485,7 +697,7 @@ class AnimateDiffPipeline:
         gs = np.asarray(guidance_scale, np.float32)
         guidance = float(np.max(gs)) > 1.0
         use_var = (self.variable_steps > 0 and self.skip is None
-                   and video is None and not segmented
+                   and self.pab is None and video is None and not segmented
                    and N <= self.variable_steps)
         tables = self._get_tables(scheduler, N,
                                   self.variable_steps if use_var else 0)
@@ -508,8 +720,13 @@ class AnimateDiffPipeline:
         chunk = max(1, min(decode_chunk, num_frames))
         while num_frames % chunk:
             chunk -= 1
+        unet = self.unet
+        if self.context is not None and num_frames > self.context.frames:
+            unet = make_windowed_apply(
+                self.unet, total_frames=num_frames,
+                out_channels=self.unet.config.in_channels, cfg=self.context)
         req = _Request(context, guidance, scale, scheduler, tables,
-                       self._sampler_cfg(scheduler), N, t_start)
+                       self._sampler_cfg(scheduler), N, t_start, unet)
         noise = self.initial_noise(latent_shape, seed)
         if video is None:
             latents = noise * tables.init_noise_sigma
