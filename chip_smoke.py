@@ -103,6 +103,22 @@ Phases, one flushed line each with its seconds:
      and one UNet evaluation torch.equal), then save_checkpoint and
      load_checkpoint the same way; the files (about 3 GB) live under
      vdx_torch/_build/smoke_files/ only while their phase runs
+ 21. the study: the grid plan's CFG sweep of corgi_beach
+     (vdx_torch.harness.plan_grid_search), its configs at CFG 5.0 and
+     9.0 at the plan's size (16 frames 512x512, 25 steps, the pipeline's
+     sampler), each alone through generate_video(output_type="device"),
+     then both as one batch through harness.generate_batch (UNet batch
+     64, K1 10 a step, GN launches against the plan; each video's rows of
+     the first UNet call, x and context, and t equal to its single call's
+     bit for bit), the batch's frames
+     against the single calls' (rel-L2 REL_L2_TOL, F8's bar in phase
+     14, and nearer its own config's call than the other's); measure_video on
+     the card (LPIPSMetric on the card, the native flow built in this run
+     on the host) against the port's CPU computation of the same frames
+     (STUDY_REL, STUDY_LPIPS_REL); save_metrics and save_summary into
+     vdx_torch/_build/smoke_files/study/, read back in the reference's
+     key order; seconds per video, peak memory, measure_video's seconds
+     by part
 Phase 3 also checks the wgmma + TMA pipeline at its edges (Sq and Skv off
 the tiles, Skv under one tile, q/k/v as views into one fused projection,
 rows whose every scaled logit is below -46; every form at each head-dim
@@ -191,8 +207,22 @@ RNG_TOL = 4e-6
 CONTEXT_FRAMES = 32
 # phase 19: a rank-8 peft adapter over every default target, at scale 0.8
 LORA_RANK, LORA_SCALE = 8, 0.8
-# scratch files of phases 19 and 20 (about 3 GB), deleted after each
+# scratch files of phases 19 and 20 (about 3 GB), deleted after each;
+# phase 21's metric JSON files stay under SCRATCH / "study"
 SCRATCH = ROOT / "vdx_torch" / "_build" / "smoke_files"
+# phase 21: the grid plan's CFG sweep of corgi_beach, two of its configs
+STUDY_CFGS = (5.0, 9.0)
+# the plan's size; a CPU rehearsal replaces it (dataclasses.replace)
+STUDY_OVERRIDE: dict = {}
+# measure_video on the card against the port's CPU computation of the
+# same frames: MSE, PSNR, flicker and warp error (fp32 means in other
+# summation orders), each value relative; a spread (std, variance) at
+# the bar of its mean or squared mean, since nearly equal values cancel
+# their agreeing bits
+STUDY_REL = 1e-5
+# LPIPS and the score: five fp32 convolution stages, cuDNN (TF32 off)
+# against oneDNN
+STUDY_LPIPS_REL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -819,16 +849,14 @@ def read_counters() -> dict:
     return {k: fn.launches for k, fn in counters().items()} | form_counters()
 
 
-def timed_call(pipe, label: str, prompt=PROMPT, keep=None, **kw):
-    """One __call__ with the counters reset just before it and read again
-    as the VAE encode ends (video2video) and as the decode starts (Python
-    reads, no synchronise), which split each kernel's launches between the
-    encode, the denoise loop and the decode. The seconds run to a
-    synchronise after the call (output_type="device" returns before the
-    card is done). -> (seconds, frames: video 0 as numpy, or the [B, F,
-    H, W, 3] device tensor, latents finite, launches by stage, peak
-    bytes); ``keep["latents"]`` gets the latents when ``keep`` is a
-    dict."""
+def counted_run(pipe, fn):
+    """``fn()`` with the counters reset just before it and read again as
+    the pipeline's VAE encode ends (video2video) and as its decode starts
+    (Python reads, no synchronise), which split each kernel's launches
+    between the encode, the denoise loop and the decode. The seconds run
+    to a synchronise after ``fn`` (output_type="device" returns before the
+    card is done). -> (result, seconds, seconds until ``fn`` returned,
+    launches by stage, peak bytes)"""
     import torch
 
     marks = {}
@@ -848,17 +876,32 @@ def timed_call(pipe, label: str, prompt=PROMPT, keep=None, **kw):
     torch.cuda.reset_peak_memory_stats()
     reset_counters()
     t0 = time.time()
-    out = pipe(prompt, **kw)
-    returned = time.time() - t0
-    torch.cuda.synchronize()
+    try:
+        out = fn()
+        returned = time.time() - t0
+        torch.cuda.synchronize()
+    finally:
+        del pipe._decode, pipe._encode
     secs = time.time() - t0
     launches = read_counters()
-    del pipe._decode, pipe._encode
     enc = marks.get("encode", dict.fromkeys(launches, 0))
     by_stage = {"encode": enc,
                 "denoise": {k: marks["decode"][k] - enc[k] for k in launches},
                 "decode": {k: n - marks["decode"][k] for k, n in launches.items()}}
-    peak = torch.cuda.max_memory_allocated()
+    return out, secs, returned, by_stage, torch.cuda.max_memory_allocated()
+
+
+def timed_call(pipe, label: str, prompt=PROMPT, keep=None, **kw):
+    """One __call__ through :func:`counted_run`. -> (seconds, frames: video
+    0 as numpy, or the [B, F, H, W, 3] device tensor, latents finite,
+    launches by stage, peak bytes); ``keep["latents"]`` gets the latents
+    when ``keep`` is a dict."""
+    import torch
+
+    out, secs, returned, by_stage, peak = counted_run(
+        pipe, lambda: pipe(prompt, **kw))
+    launches = {k: by_stage["encode"][k] + by_stage["denoise"][k] + n
+                for k, n in by_stage["decode"].items()}
     lat_finite = bool(torch.isfinite(out.latents).all())
     if keep is not None:
         keep["latents"] = out.latents
@@ -1890,6 +1933,229 @@ def run_checkpoints(pipe) -> dict:
     return res
 
 
+def study_rel(got: float, want: float, scale: float = 0.0) -> float:
+    return abs(got - want) / max(abs(want), scale, 1e-30)
+
+
+def compare_metrics(card, cpu) -> dict:
+    """The largest relative difference of each kind of value between two
+    VideoMetrics of the same frames (spreads against their mean's scale)."""
+    worst = {"basic": 0.0, "warp": 0.0, "lpips": 0.0, "flow": 0.0}
+    for a, b in zip(card.frame_metrics, cpu.frame_metrics):
+        worst["basic"] = max(worst["basic"], study_rel(a.mse, b.mse),
+                             study_rel(a.psnr, b.psnr))
+        worst["warp"] = max(worst["warp"], study_rel(a.warp_error, b.warp_error))
+        worst["lpips"] = max(worst["lpips"], study_rel(a.lpips, b.lpips))
+        worst["flow"] = max(worst["flow"],
+                            study_rel(a.flow_magnitude_mean, b.flow_magnitude_mean),
+                            study_rel(a.flow_magnitude_std, b.flow_magnitude_std))
+    kinds = {"mean_mse": "basic", "mean_psnr": "basic", "flicker_index": "basic",
+             "std_mse": ("basic", cpu.mean_mse),
+             "mean_warp_error": "warp",
+             "warp_error_variance": ("warp", cpu.mean_warp_error ** 2),
+             "mean_lpips": "lpips", "std_lpips": ("lpips", cpu.mean_lpips),
+             "temporal_consistency_score": "lpips",
+             "mean_flow_magnitude": "flow",
+             "flow_magnitude_variance": ("flow", cpu.mean_flow_magnitude ** 2)}
+    for field, kind in kinds.items():
+        kind, scale = kind if isinstance(kind, tuple) else (kind, 0.0)
+        worst[kind] = max(worst[kind], study_rel(getattr(card, field),
+                                                 getattr(cpu, field), scale))
+    return worst
+
+
+SUMMARY_KEYS = ["experiment_id", "video_name", "guidance_scale",
+                "num_inference_steps", "phase", "mean_mse", "std_mse",
+                "mean_lpips", "std_lpips", "mean_flow_magnitude",
+                "flow_magnitude_variance", "mean_warp_error",
+                "warp_error_variance", "temporal_consistency_score",
+                "flicker_index"]
+
+
+def run_study(pipe, gn_per_call) -> dict:
+    """Phase 21: two configs of the grid plan generated alone and as one
+    batch, then measured on the card against the CPU."""
+    import dataclasses
+
+    import torch
+
+    from vdx_torch.harness import (generate_batch, generate_video,
+                                   plan_grid_search)
+    from vdx_torch.metrics import (LPIPSMetric, OpticalFlowEstimator,
+                                   measure_video, save_metrics, save_summary)
+    from vdx_torch.metrics import flow as flow_mod
+    from vdx_torch.metrics.temporal import unit_frames
+
+    t_phase = time.time()
+    plan = plan_grid_search(phase="cfg", video_filter="corgi_beach")
+    configs = [c for c in plan if c.guidance_scale in STUDY_CFGS]
+    sizes = {(c.num_frames, c.height, c.width, c.num_inference_steps) for c in configs}
+    if len(configs) != 2 or sizes != {(16, 512, 512, 25)}:
+        raise SystemExit(f"study: the plan gave {configs}")
+    configs = [dataclasses.replace(c, **STUDY_OVERRIDE) for c in configs]
+    c0 = configs[0]
+    F_, H, W, steps = c0.num_frames, c0.height, c0.width, c0.num_inference_steps
+    sched, dchunk = pipe.scheduler, WORKLOAD["decode_chunk"]
+    warm = [dataclasses.replace(c, num_inference_steps=2) for c in configs]
+    generate_video(pipe, warm[0], output_type="device")
+    generate_batch(pipe, warm, sched, decode_chunk=dchunk)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # every UNet call's input shape, and the first call's (x, t, context)
+    unet_in, first = [], {}
+
+    def record(module, args):
+        if not unet_in:
+            first.update(x=args[0].clone(), t=args[1].clone(), ctx=args[2].clone())
+        unet_in.append(tuple(args[0].shape))
+
+    hook = pipe.unet.register_forward_pre_hook(record)
+    try:
+        singles = []
+        for c in configs:
+            unet_in.clear()
+            frames, secs, _, by_stage, peak = counted_run(
+                pipe, lambda c=c: generate_video(pipe, c, output_type="device"))
+            singles.append(dict(frames=frames[0], secs=secs, by_stage=by_stage,
+                                peak=peak, unet_in=list(unet_in), first=dict(first)))
+        unet_in.clear()
+        batch, b_secs, _, b_stage, b_peak = counted_run(
+            pipe, lambda: generate_batch(pipe, configs, sched, decode_chunk=dchunk))
+        b_unet_in, b_first = list(unet_in), dict(first)
+    finally:
+        hook.remove()
+    # video b's rows of the batch's first UNet call (uncond b, cond b) are
+    # its single call's, bit for bit: its seed's noise, scaled alike, and
+    # its own prompt pair
+    routed = [torch.equal(b_first[k][[b, 2 + b]], s["first"][k])
+              for b, s in enumerate(singles) for k in ("x", "ctx")] \
+        + [torch.equal(b_first["t"][:2], s["first"]["t"]) for s in singles]
+    hw = (H // 8, W // 8, 4)
+    for s in singles:
+        if s["unet_in"] != [(2, F_) + hw] * steps:
+            raise SystemExit(f"study: a single call's UNet inputs {s['unet_in']}")
+        if s["by_stage"]["denoise"]["K1"] != 10 * steps or s["by_stage"]["decode"]["K1"]:
+            raise SystemExit(f"study: single call launches {s['by_stage']}")
+        check_no_forms(s["by_stage"], "study single")
+        check_gn_launches(s["by_stage"], gn_per_call, "512", steps, F_ // dchunk)
+    # the batch: ONE UNet call a step at CFG batch 4 x 16 frames = 64
+    if not all(routed):
+        raise SystemExit(f"study: the batch's first UNet inputs are not the "
+                         f"single calls' (x, context per video; t): {routed}")
+    if b_unet_in != [(4, F_) + hw] * steps:
+        raise SystemExit(f"study: the batch's UNet inputs {b_unet_in}, "
+                         f"expected {steps} calls at {(4, F_) + hw}")
+    if b_stage["denoise"]["K1"] != 10 * steps or b_stage["decode"]["K1"]:
+        raise SystemExit(f"study: batch launches {b_stage}, expected K1 "
+                         f"{10 * steps} in the denoise loop (10 a step)")
+    check_no_forms(b_stage, "study batch")
+    check_gn_launches(b_stage, gn_per_call, "batch", steps, 2 * F_ // dchunk)
+    # the pipeline is on the card (phase 4), and so are the batch's frames
+    ok = (batch.device.type == pipe.device.type and batch.dtype == torch.uint8
+          and tuple(batch.shape) == (2, F_, H, W, 3))
+    if not ok:
+        raise SystemExit(f"study: batch frames {batch.device} {batch.dtype} "
+                         f"{tuple(batch.shape)}")
+    # F8: cuBLAS and cuDNN pick other algorithms at UNet batch 64, and 25
+    # steps carry the difference into the frames; a batching fault (a
+    # video with another seed, scale or prompt) moves it to the scale of
+    # the two configs' distance from each other
+    rels = [rel_l2(batch[b], s["frames"]) for b, s in enumerate(singles)]
+    levels = [int((batch[b].int() - s["frames"].int()).abs().max())
+              for b, s in enumerate(singles)]
+    apart = rel_l2(singles[0]["frames"], singles[1]["frames"])
+    crossed = [rel_l2(batch[b], singles[1 - b]["frames"]) for b in range(2)]
+    log(f"[study] {len(configs)} configs of plan_grid_search(phase='cfg', "
+        f"video_filter='corgi_beach') at CFG {STUDY_CFGS}, {F_}f {H}x{W}, "
+        f"{steps} {sched.upper()} steps: single calls "
+        f"{[round(s['secs'], 3) for s in singles]} s (s/video), peak "
+        f"{[s['peak'] for s in singles]} B "
+        f"({max(s['peak'] for s in singles) / 2**30:.2f} GiB); the batch "
+        f"{b_secs:.3f} s ({b_secs / 2:.3f} s/video), peak {b_peak} B "
+        f"({b_peak / 2**30:.2f} GiB), UNet input {b_unet_in[0]} x "
+        f"{len(b_unet_in)}, launches denoise {b_stage['denoise']} decode "
+        f"{b_stage['decode']}; batch frames against the single calls: rel-L2 "
+        f"{rels[0]:.3e} / {rels[1]:.3e} (bar {REL_L2_TOL}), max "
+        f"{levels} levels; against the other config's single call "
+        f"{crossed[0]:.3e} / {crossed[1]:.3e}; the two single calls "
+        f"{apart:.3e} apart; the first UNet call's inputs per video equal "
+        f"the single calls': {all(routed)}")
+    # with random weights CFG 5.0 and 9.0 leave the frames only ~3e-2
+    # apart, so each video must also sit nearer its own config's single
+    # call than the other's: the per-video guidance reached the card
+    if not (max(rels) < REL_L2_TOL and all(r < x for r, x in zip(rels, crossed))):
+        raise SystemExit(f"study: a batch's video differs from its single "
+                         f"call: rel-L2 {rels}, against the other config's "
+                         f"{crossed}, the configs {apart} apart")
+    for s in singles:
+        f = s["frames"]
+        if int(f.min()) == int(f.max()):
+            raise SystemExit("study: constant frames")
+
+    # measure_video on the card, then the same frames on the CPU
+    t0 = time.time()
+    flow = OpticalFlowEstimator("native")
+    native = dict(flow_mod.build_info)
+    lp = LPIPSMetric(seed=0)
+    lp_cpu = LPIPSMetric(seed=0, device="cpu")
+    out_dir = SCRATCH / "study"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    measured, timings, worst = [], [], {}
+    for c, s in zip(configs, singles):
+        frames = s["frames"]
+        unit_equal = torch.equal(unit_frames(frames).cpu(),
+                                 unit_frames(frames.cpu()))
+        cfg = dataclasses.asdict(c)
+        parts = {}
+        torch.cuda.synchronize()
+        t1 = time.time()
+        m = measure_video(frames, c.video_name, c.experiment_id, cfg, lp, flow,
+                          timings=parts)
+        parts["total"] = time.time() - t1
+        t1 = time.time()
+        m_cpu = measure_video(frames.cpu(), c.video_name, c.experiment_id, cfg,
+                              lp_cpu, flow)
+        parts["cpu_total"] = time.time() - t1
+        diff = compare_metrics(m, m_cpu)
+        for k, v in diff.items():
+            worst[k] = max(worst.get(k, 0.0), v)
+        bad = {k: v for k, v in diff.items()
+               if v > (STUDY_LPIPS_REL if k == "lpips" else STUDY_REL)}
+        log(f"[study] measure_video {c.experiment_id}: {m.num_frames} frames "
+            f"on {frames.device}, seconds {parts}; mean_mse {m.mean_mse:.6e} "
+            f"mean_psnr {m.mean_psnr:.4f} mean_lpips {m.mean_lpips:.6f} "
+            f"mean_flow_magnitude {m.mean_flow_magnitude:.6f} mean_warp_error "
+            f"{m.mean_warp_error:.6e} flicker {m.flicker_index:.6e} score "
+            f"{m.temporal_consistency_score:.6f}; against the CPU, largest "
+            f"relative difference {diff} (bars {STUDY_REL}, LPIPS and score "
+            f"{STUDY_LPIPS_REL}); [0, 1] frames on the card == CPU: {unit_equal}")
+        if bad or not unit_equal or m.frame_metrics[0].frame_idx != 0 \
+                or len(m.frame_metrics) != F_ - 1:
+            raise SystemExit(f"study: measure_video on the card against the "
+                             f"CPU: {diff}, unit frames equal {unit_equal}")
+        save_metrics(m, out_dir / f"{m.experiment_id}_metrics.json")
+        measured.append(m)
+        timings.append(parts)
+    save_summary(measured, out_dir / "grid_search_results.json")
+    with open(out_dir / "grid_search_results.json") as f:
+        summary = json.load(f)
+    if [list(r) for r in summary] != [SUMMARY_KEYS] * len(configs):
+        raise SystemExit(f"study: summary keys {[list(r) for r in summary]}")
+    names = sorted(p.name for p in out_dir.iterdir())
+    log(f"[study] native flow build {native}; files {names} in "
+        f"{out_dir} ({time.time() - t0:.1f}s measuring, "
+        f"{time.time() - t_phase:.1f}s phase)")
+    return dict(single_s=[s["secs"] for s in singles],
+                single_peak=[s["peak"] for s in singles],
+                batch_s=b_secs, batch_s_per_video=b_secs / 2, batch_peak=b_peak,
+                batch_launches=b_stage, batch_rel_l2=rels, batch_max_levels=levels,
+                configs_rel_l2=apart, crossed_rel_l2=crossed,
+                first_inputs_equal=all(routed),
+                measure_s=timings, worst_rel=worst, native_flow=native,
+                files=names)
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(HANG_BUDGET_S, exit=True)
     t_start = time.time()
@@ -2104,6 +2370,10 @@ def main() -> int:
     lora = run_lora(pipe, gn_per_call)
     checkpoints = run_checkpoints(pipe)
 
+    # 21. the study: two grid configs alone and batched, measured on the card
+    study = run_study(pipe, gn_per_call)
+    torch.cuda.empty_cache()
+
     # Counts are per kernel at every shape, within the row's stage of its
     # path's run: the denoise loop of a timed call (per step), its VAE
     # encode and decode (per chunk), the GN dispatch at 2560 channels, the
@@ -2146,6 +2416,7 @@ def main() -> int:
         for p, d in paths.items()},
         "samplers": sampler_runs, "knobs": knobs, "pab": pab,
         "context": context, "lora": lora, "checkpoints": checkpoints,
+        "study": study,
         # every flash attention counter (kernels.flash_attention
         # .launch_counts) with its launches at phase 3's edges
         "edge_launches": edge_launches,

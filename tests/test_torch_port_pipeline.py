@@ -339,6 +339,15 @@ def _check_surface_raises(slice_run):
     dev = tp(PROMPT, **dict(kw, output_type="device", num_inference_steps=1))
     assert torch.is_tensor(dev.frames) and dev.frames.dtype == torch.uint8
     assert tuple(dev.frames.shape) == (1, 8, 64, 64, 3)
+    # any other output_type gives PIL frames, as vdx's _postprocess does
+    u8 = dev.frames.numpy()
+    for other in ("pil", "PIL", "frames"):
+        out = tp(PROMPT, **dict(kw, output_type=other, num_inference_steps=1))
+        want = JPipe._postprocess(None, None, jnp.asarray(u8), None, other, 1)
+        for frames in (out.frames, want.frames):
+            assert len(frames) == 1 and len(frames[0]) == 8
+            np.testing.assert_array_equal(
+                np.stack([np.asarray(f) for f in frames[0]]), u8[0])
     with pytest.raises(ValueError, match="unknown sampler"):
         tp(PROMPT, scheduler="heun", **kw)
     with pytest.raises(ValueError, match="unknown sampler"):

@@ -1,0 +1,125 @@
+"""Batched experiment execution (port of vdx/harness/batched.py).
+
+The reference runs the grid's experiments one after another
+(experiments/05_grid_search_ablation.py:316-334). Experiments that share
+(steps, frames, height, width) and differ in prompt, CFG and seed run
+here as one batch: one denoise loop whose every step is ONE UNet call at
+batch 2N (each video's uncond and cond rows), each video guided by its
+own scale (``cfg_combine`` with a per-video scale, the pipeline's
+``guidance_rescale`` per sample) from its own seed's noise (vdx's
+``jax.random.normal(as_key(seed))``, through vdx_torch.core.rng), under
+the pipeline's ``sampler_configs``. The group is then decoded in frame
+chunks through the pipeline's VAE and left on its device
+(:func:`generate_batch`); :func:`run_batched_experiments` writes the
+reference's artifacts for it while the next batch runs.
+
+PAB and skip mode keep per-request state the batch does not carry: the
+batched runner raises under them, as vdx's does. Under ``context`` the
+batch runs the UNet over the whole clip, as vdx's batched program does.
+"""
+
+from __future__ import annotations
+
+import itertools
+from pathlib import Path
+from typing import List, Sequence
+
+import torch
+
+from vdx_torch.core import rng
+from vdx_torch.harness.config import ExperimentConfig
+from vdx_torch.harness.grid import save_experiment
+from vdx_torch.pipelines.base import _Request
+
+
+def group_configs(configs: Sequence[ExperimentConfig]):
+    keyf = lambda c: (c.num_inference_steps, c.num_frames, c.height, c.width)  # noqa: E731
+    ordered = sorted(configs, key=keyf)
+    return [(k, list(g)) for k, g in itertools.groupby(ordered, key=keyf)]
+
+
+def denoise_batch(pipe, configs: Sequence[ExperimentConfig],
+                  scheduler: str = "ddim") -> torch.Tensor:
+    """The denoise loop of N experiments of one group as one batch ->
+    their final latents [N, F, h, w, C] on the pipeline's device."""
+    if getattr(pipe, "pab", None) is not None or getattr(pipe, "skip", None) is not None:
+        raise ValueError(
+            "the batched runner runs its own denoise loop and does not "
+            "implement the turbo modes — use a plain pipeline for "
+            "batched grids/serving (pab/skip are per-pipeline features)")
+    keys = {(c.num_inference_steps, c.num_frames, c.height, c.width)
+            for c in configs}
+    if len(keys) != 1:
+        raise ValueError(f"a batch needs one (steps, frames, height, width); "
+                         f"got {sorted(keys)} (group_configs splits them)")
+    (steps, F, H, W), = keys
+    ds = pipe.vae.config.downscale
+    shape = (F, H // ds, W // ds, pipe.unet.config.in_channels)
+    dev = pipe.device
+    ctx = [pipe.encode_prompt(c.prompt, c.negative_prompt) for c in configs]
+    # (uncond x N, cond x N), the order the loop's CFG split expects
+    context = torch.cat([torch.stack([x[0] for x in ctx]),
+                         torch.stack([x[1] for x in ctx])])
+    scales = torch.tensor([c.guidance_scale for c in configs],
+                          dtype=torch.float32, device=dev).view(-1, 1, 1, 1, 1)
+    tables = pipe._get_tables(scheduler, steps)
+    noise = rng.normal_batch([c.seed for c in configs], shape, dev)
+    req = _Request(context, True, scales, scheduler, tables,
+                   pipe._sampler_cfg(scheduler), steps)
+    return pipe._denoise(req, noise * tables.init_noise_sigma).latents
+
+
+def generate_batch(pipe, configs: Sequence[ExperimentConfig],
+                   scheduler: str = "ddim", decode_chunk: int = 4) -> torch.Tensor:
+    """N experiments of one group -> uint8 frames [N, F, H, W, 3] on the
+    pipeline's device, returned once the work is queued (no host sync)."""
+    latents = denoise_batch(pipe, configs, scheduler)
+    F = latents.shape[1]
+    chunk = max(1, min(decode_chunk, F))
+    while F % chunk:
+        chunk -= 1
+    return pipe._decode(latents, chunk)
+
+
+def run_batched_experiments(
+    pipe,
+    configs: Sequence[ExperimentConfig],
+    output_dir: Path,
+    scheduler: str = "ddim",
+    mesh=None,
+    max_batch: int = 8,
+    decode_chunk: int = 4,
+    log=print,
+) -> List[ExperimentConfig]:
+    """Run experiments in batches of up to ``max_batch`` per group; the
+    grid runner's artifacts and resume marker. Each batch's frames are
+    written while the next batch runs on the card."""
+    if mesh is not None:
+        raise NotImplementedError("sharding the batch over a device mesh "
+                                  "comes with ROADMAP Queue 1 item 14")
+    output_dir = Path(output_dir)
+    output_dir.mkdir(parents=True, exist_ok=True)
+
+    todo = [c for c in configs
+            if not (output_dir / c.experiment_id / "config.json").exists()]
+    for c in configs:
+        if c not in todo:
+            log(f"  Skipping {c.experiment_id} (already exists)")
+
+    def flush(frames, cfgs):
+        for arr, cfg in zip(frames.cpu().numpy(), cfgs):
+            save_experiment(arr, cfg, output_dir)
+
+    pending = None  # (device frames [N, F, H, W, 3], configs) to write
+    for (steps, F, H, W), group in group_configs(todo):
+        for start in range(0, len(group), max_batch):
+            chunk_cfgs = group[start:start + max_batch]
+            log(f"  Batch of {len(chunk_cfgs)} experiments @ steps={steps} "
+                f"{H}x{W}x{F}")
+            frames = generate_batch(pipe, chunk_cfgs, scheduler, decode_chunk)
+            if pending is not None:
+                flush(*pending)
+            pending = (frames, chunk_cfgs)
+    if pending is not None:
+        flush(*pending)
+    return list(configs)

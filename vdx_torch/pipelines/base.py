@@ -115,7 +115,8 @@ class SkipConfig:
 @dataclasses.dataclass
 class PipelineOutput:
     """``frames[b]`` is video b: a uint8 [F, H, W, 3] array for
-    output_type="np", a list of PIL images for "pil"; for "device",
+    output_type="np", a list of PIL images for "pil" (and any other
+    string but "latent" and "device", as vdx); for "device",
     ``frames`` is one uint8 [B, F, H, W, 3] tensor on the pipeline's
     device."""
 
@@ -662,9 +663,9 @@ class AnimateDiffPipeline:
         come from the clip. ``guidance_scale`` of rank 1 is a per-step
         schedule of ``num_inference_steps`` entries. ``dispatch_steps`` = K
         runs the loop as segments of K steps. output_type "device" leaves
-        the frames on the device and returns without a host sync."""
-        if output_type not in ("np", "pil", "latent", "device"):
-            raise ValueError(f"unknown output_type {output_type!r}")
+        the frames on the device and returns without a host sync; "latent"
+        returns the latents only, "np" numpy frames, and any other string
+        PIL frames, as vdx."""
         scheduler = scheduler or self.scheduler
         N = num_inference_steps
         t_start = 0
