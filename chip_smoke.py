@@ -119,6 +119,24 @@ Phases, one flushed line each with its seconds:
      vdx_torch/_build/smoke_files/study/, read back in the reference's
      key order; seconds per video, peak memory, measure_video's seconds
      by part
+ 22. serving: the 512 main path over HTTP on phase 7's modules (a DDIM
+     sibling pipeline with a ProgressRelay), GenerationServer on
+     127.0.0.1 at an ephemeral port, each request on its own http.client
+     connection from a worker thread: GET /healthz (device "cuda"); the
+     PNG codec (vdx_torch.io.png) timed on phase 7's 16 frames, its own
+     files and Paeth-filtered ones; POST /generate three times (phase 7's
+     request first: within one uint8 level of phase 7's direct call);
+     BatchingGenerationService with the three queued and one 10-step
+     request before its worker starts (2 batches, sizes 3 and 1; the
+     batch's denoise launches against the plan at UNet batch 96; each
+     video within REL_L2_TOL of its own sync request and nearer it than
+     the others; seconds per video, peak memory); POST /jobs with
+     progress polled up to 25 steps, the result against the sync route,
+     a second JobManager recovering the journal as done without running
+     it; POST /v2v with phase 7's frames at strength 0.6 against phase
+     15's direct call (REL_L2_TOL); a ForwardTracer over one 512 UNet
+     forward (every submodule that runs a forward recorded; K1/K2/K3
+     launches equal to the untraced forward's)
 Phase 3 also checks the wgmma + TMA pipeline at its edges (Sq and Skv off
 the tiles, Skv under one tile, q/k/v as views into one fused projection,
 rows whose every scaled logit is below -46; every form at each head-dim
@@ -223,6 +241,15 @@ STUDY_REL = 1e-5
 # LPIPS and the score: five fp32 convolution stages, cuDNN (TF32 off)
 # against oneDNN
 STUDY_LPIPS_REL = 1e-4
+# phase 22: three requests of one static key (phase 7's call first), then
+# one at 10 steps; each request on its own HTTP connection and thread
+SERVE_REQUESTS = (
+    {"prompt": PROMPT, "seed": 1234},
+    {"prompt": BATCH_PROMPTS[1], "seed": 4321, "guidance_scale": 6.0},
+    {"prompt": "birds flying across a blue sky, nature documentary",
+     "seed": 77, "guidance_scale": 9.0},
+)
+SERVE_OTHER = {"prompt": PROMPT, "seed": 5, "num_inference_steps": 10}
 
 
 def log(msg: str) -> None:
@@ -317,6 +344,11 @@ def check_kernels(dev):
         # a two-prompt batch doubles the UNet batch (phase 14)
         ("K1", (64, 4096, 8, 40), "batch", "level-0 self-attn, 2 videos", True),
         ("K1", (64, 1024, 8, 80), "batch", "level-1 self-attn, 2 videos", False),
+        # the server's batch of three requests: UNet batch 96 (phase 22)
+        ("K1", (96, 4096, 8, 40), "serve", "level-0 self-attn, 3 served videos",
+         True),
+        ("K1", (96, 1024, 8, 80), "serve", "level-1 self-attn, 3 served videos",
+         False),
     )
     static = dict(exp_impl="staticmax")
     for kname, (B, S, H, D), path, site, one_slice in attn_cases:
@@ -349,7 +381,7 @@ def check_kernels(dev):
                  "K4": "flash_attention running-max"}[kname]
         rows.append(dict(
             name=f"{kname} {label} [{B},{S},{H},{D}] ({site}, "
-                 f"{'512x512' if path == 'batch' else f'{path}x{path}'})",
+                 f"{'512x512' if path in ('batch', 'serve') else f'{path}x{path}'})",
             kernel=kname, path=path, stage="denoise", route="cuda",
             source="vdx_torch/csrc/flash_attention_sm90.cu",
             replaces=("vdx/kernels/flash_attention.py:204" if kname == "K1"
@@ -409,6 +441,12 @@ def check_kernels(dev):
          "level-1 motion-module GN, 2 videos", "batch", "denoise"),
         ("K2", (4, 4096, 1280), bf16, 1e-6, False,
          "level-2 motion-module GN, 2 videos", "batch", "denoise"),
+        # the server's batch of three requests at 512 (phase 22): UNet
+        # batch 96, motion GN batch 6
+        ("K2", (96, 4096, 320), bf16, 1e-5, True,
+         "UNet level-0 resnet GN-SiLU, 3 served videos", "serve", "denoise"),
+        ("K3", (6, 65536, 320), bf16, 1e-6, False,
+         "level-0 motion-module GN, 3 served videos", "serve", "denoise"),
         # every GN site of the VAE encoder at 512x512 (phase 15), 8 frames
         ("K3", (8, 262144, 128), bf16, 1e-6, True,
          "VAE encoder down-0 GN-SiLU", "v2v", "encode"),
@@ -1032,21 +1070,22 @@ def drive_gn2560(dev) -> dict:
 def check_gn_sites(dev) -> dict:
     """Every GroupNorm of one UNet call (CFG batch 2 x 16 frames), one
     8-frame decode chunk and one 8-frame encode chunk at 512x512 and
-    768x768, and of one UNet call of a two-prompt batch at 512x512 (CFG
-    batch 4), traced on the meta device (scripts/bench_gn_torch.py), each
+    768x768, and of one UNet call of a two-prompt batch and of the
+    server's three-request batch at 512x512 (CFG batch 4 and 6), traced on
+    the meta device (scripts/bench_gn_torch.py), each
     driven through ops.groupnorm as often as the path runs it with the GN
     counters reset: one [gn] line a path with the launches (checked
     against the launch plan, kernels.groupnorm.gn_plan), the summed kernel
     ms, the summed bound and the summed F.group_norm (+ F.silu) ms.
-    -> {(size or "batch", "unet", "decode" or "encode"): launches by
-    counter}"""
+    -> {(size, "batch" or "serve", "unet", "decode" or "encode"):
+    launches by counter}"""
     import torch
 
     from vdx_torch.kernels import groupnorm as KG
 
     bench = load_script("bench_gn_torch")
     expected = {}
-    for size, videos in ((512, 1), (768, 1), (512, 2)):
+    for size, videos in ((512, 1), (768, 1), (512, 2), (512, 3)):
         for path, sites in bench.gn_sites(size, size, videos=videos).items():
             if videos > 1 and path != "unet":  # chunks do not see the batch
                 continue
@@ -1067,7 +1106,8 @@ def check_gn_sites(dev) -> dict:
             if launches != want:
                 raise SystemExit(f"[gn] {what}: launches {launches}, "
                                  f"the plan says {want}")
-            expected[("batch" if videos > 1 else str(size), path)] = want
+            key = {1: str(size), 2: "batch", 3: "serve"}[videos]
+            expected[(key, path)] = want
             torch.cuda.empty_cache()
     expected[("batch", "decode")] = expected[("512", "decode")]
     return expected
@@ -1524,7 +1564,7 @@ def run_video2video(pipe, clip, dev, gn_per_call) -> dict:
     check_gn_launches(by_stage, gn_per_call, "512", steps, chunks, encoded=True)
     check_frames(frames, clip.shape, lat_finite, "video2video")
     return dict(secs=secs, by_stage=by_stage, peak=peak, frames=clip.shape[0],
-                steps=steps, chunks=chunks)
+                steps=steps, chunks=chunks, video=frames)
 
 
 def run_knobs(pipe) -> dict:
@@ -2155,6 +2195,374 @@ def run_study(pipe, gn_per_call) -> dict:
                 measure_s=timings, worst_rel=worst, native_flow=native,
                 files=names)
 
+def http_call(port: int, method: str, path: str, body=None):
+    """One request on its own connection -> (status, JSON payload)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=HANG_BUDGET_S)
+    try:
+        conn.request(method, path,
+                     None if body is None else json.dumps(body).encode(),
+                     {"Content-Type": "application/json"})
+        r = conn.getresponse()
+        return r.status, json.loads(r.read())
+    finally:
+        conn.close()
+
+
+def in_threads(*calls) -> list:
+    """Each call in a worker thread of its own, all started together ->
+    their results in order; a call's exception is raised here."""
+    import threading
+
+    out = [None] * len(calls)
+
+    def run(i, fn):
+        try:
+            out[i] = (True, fn())
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            out[i] = (False, e)
+
+    threads = [threading.Thread(target=run, args=(i, fn))
+               for i, fn in enumerate(calls)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for ok, v in out:
+        if not ok:
+            raise v
+    return [v for _, v in out]
+
+
+def paeth_png(frame) -> bytes:
+    """A PNG of ``frame`` (uint8 [H, W, 3]) with the Paeth filter on every
+    row, as a client's adaptive encoder writes most rows: the decoder's
+    slow path (the card's machine has no Pillow to write one)."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    x = frame.astype(np.int16)
+    a = np.zeros_like(x)
+    a[:, 1:] = x[:, :-1]
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]
+    c = np.zeros_like(x)
+    c[1:, 1:] = x[:-1, :-1]
+    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    H, W, _ = frame.shape
+    rows = np.full((H, 1 + 3 * W), 4, np.uint8)
+    rows[:, 1:] = ((x - pred) & 0xFF).astype(np.uint8).reshape(H, 3 * W)
+
+    def chunk(kind, data):
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data)))
+
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+            + chunk(b"IEND", b""))
+
+
+def run_serving(pipe, clip, v2v_frames, gn_per_call) -> tuple:
+    """Phase 22: the 512 main path served over HTTP on phase 7's modules
+    (GenerationServer on 127.0.0.1, an ephemeral port; every request on
+    its own http.client connection from a worker thread). -> (the batch's
+    path record, the phase's summary)"""
+    import base64
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from vdx_torch.harness import batched
+    from vdx_torch.io.png import decode_pngs, encode_png
+    from vdx_torch.serving import (BatchingGenerationService, GenerationServer,
+                                   GenerationService, JobManager, ProgressRelay)
+    from vdx_torch.tracing import ForwardTracer
+
+    t_phase = time.time()
+    relay = ProgressRelay()
+    sp = sibling_of(pipe, scheduler="ddim", progress=relay)
+    journal = SCRATCH / "journal"
+    shutil.rmtree(journal, ignore_errors=True)
+    F_, H, W = (WORKLOAD[k] for k in ("num_frames", "height", "width"))
+    # the services' defaults are phase 7's call (GenerationService's own,
+    # but for the CPU rehearsal's smaller WORKLOAD and TIMED_STEPS)
+    defaults = dict(num_frames=F_, height=H, width=W,
+                    num_inference_steps=TIMED_STEPS,
+                    guidance_scale=WORKLOAD["guidance_scale"],
+                    negative_prompt=WORKLOAD["negative_prompt"])
+
+    def frames_of(payload):
+        return decode_pngs([base64.b64decode(f) for f in payload["frames"]])
+
+    def levels(a, b):
+        return int(np.abs(a.astype(np.int16) - b.astype(np.int16)).max())
+
+    def rel(a, b):
+        return rel_l2(torch.from_numpy(a), torch.from_numpy(b))
+
+    # the codec on 16 frames: the server's own files (filter 0), and a
+    # client's (Paeth on every row) for the decoder's diagonal path
+    t0 = time.time()
+    pngs = [encode_png(f) for f in clip]
+    enc_s = time.time() - t0
+    t0 = time.time()
+    back = decode_pngs(pngs)
+    dec_s = time.time() - t0
+    paeth = [paeth_png(f) for f in clip]
+    t0 = time.time()
+    back_paeth = decode_pngs(paeth)
+    dec_paeth_s = time.time() - t0
+    codec = dict(encode_s=enc_s, decode_s=dec_s, decode_paeth_s=dec_paeth_s,
+                 bytes=sum(map(len, pngs)), paeth_bytes=sum(map(len, paeth)))
+    log(f"[serve] PNG codec, {len(clip)} frames {list(clip.shape[1:])}: "
+        f"encode {enc_s:.4f}s ({codec['bytes']} B), decode {dec_s:.4f}s, "
+        f"decode of Paeth-filtered files {dec_paeth_s:.4f}s "
+        f"({codec['paeth_bytes']} B); round trips exact: "
+        f"{np.array_equal(back, clip)} / {np.array_equal(back_paeth, clip)}")
+    if not (np.array_equal(back, clip) and np.array_equal(back_paeth, clip)):
+        raise SystemExit("serve: the PNG codec does not round-trip the frames")
+
+    server = GenerationServer(GenerationService(sp, defaults), port=0,
+                              journal_dir=journal)
+    bsvc = BatchingGenerationService(sp, defaults, scheduler="ddim",
+                                     autostart=False)
+    bserver = GenerationServer(bsvc, port=0)
+    server.start()
+    bserver.start()
+    real_denoise = batched.denoise_batch
+    try:
+        # 1. health
+        code, health = in_threads(lambda: http_call(server.port, "GET",
+                                                    "/healthz"))[0]
+        log(f"[serve] GET /healthz: {code} {health}")
+        if code != 200 or health["device"] != "cuda":
+            raise SystemExit(f"serve: /healthz {code} {health}")
+
+        # 2. the sync route, one request at a time: phase 7's call first
+        sync = []
+        for r in SERVE_REQUESTS:
+            t0 = time.time()
+            code, out = in_threads(lambda r=r: http_call(
+                server.port, "POST", "/generate", r))[0]
+            secs = time.time() - t0
+            if code != 200 or out["num_frames"] != F_:
+                raise SystemExit(f"serve: POST /generate {code} "
+                                 f"{str(out)[:300]}")
+            sync.append(dict(secs=secs, server_s=out["timings"]["seconds"],
+                             frames=frames_of(out), payload=out))
+        direct = levels(sync[0]["frames"], clip)
+        log(f"[serve] POST /generate x {len(sync)} ({F_}f {H}x{W}, "
+            f"{TIMED_STEPS} DDIM steps): seconds per request {[round(x['secs'], 3) for x in sync]}"
+            f" (server's timings {[x['server_s'] for x in sync]}); phase 7's "
+            f"request against phase 7's direct pipe(...) call: max "
+            f"{direct} uint8 levels apart")
+        if direct > 1:
+            raise SystemExit(f"serve: the served frames are {direct} levels "
+                             "from the direct call's")
+
+        # 3. micro-batching: three requests of one key and one other
+        runs = []
+
+        def counted_denoise(p, configs, scheduler="ddim", context=None):
+            before = read_counters()
+            lat = real_denoise(p, configs, scheduler, context=context)
+            after = read_counters()
+            runs.append((len(configs), configs[0].num_inference_steps,
+                         {k: after[k] - before[k] for k in after}))
+            return lat
+
+        batched.denoise_batch = counted_denoise
+        reqs = list(SERVE_REQUESTS) + [SERVE_OTHER]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t_batch = {}
+
+        def start_when_queued():
+            deadline = time.time() + 60
+            while len(bsvc._queue) < len(reqs) and time.time() < deadline:
+                time.sleep(0.005)
+            t_batch["t0"] = time.time()
+            bsvc.start_worker()
+            return len(bsvc._queue)
+
+        results = in_threads(*[lambda r=r: http_call(bserver.port, "POST",
+                                                     "/generate", r)
+                               for r in reqs], start_when_queued)
+        b_secs = time.time() - t_batch["t0"]
+        b_peak = torch.cuda.max_memory_allocated()
+        queued = results.pop()
+        batched.denoise_batch = real_denoise
+        if any(code != 200 for code, _ in results):
+            raise SystemExit(f"serve: batched requests {[c for c, _ in results]}"
+                             f" {str(results)[:300]}")
+        sizes = [out["timings"]["batch_size"] for _, out in results]
+        vids = [frames_of(out) for _, out in results]
+        per_req = [(n, steps) for n, steps, _ in runs]
+        three = [d for n, steps, d in runs if n == 3]
+        plan = {"K1": 10 * TIMED_STEPS, "K4": 0} | {
+            k: n * TIMED_STEPS for k, n in gn_per_call[("serve", "unet")].items()}
+        rels = [[rel(v, s["frames"]) for s in sync] for v in vids[:3]]
+        log(f"[serve] BatchingGenerationService, {len(reqs)} requests queued "
+            f"({queued} in the queue at start): batches_run "
+            f"{bsvc.batches_run}, batch sizes {sizes}, denoise_batch runs "
+            f"(videos, steps) {per_req}; {b_secs:.3f}s for all, the batch "
+            f"of 3 {results[0][1]['timings']['seconds']}s on the server "
+            f"({results[0][1]['timings']['seconds'] / 3:.3f} s/video), the "
+            f"10-step request {results[3][1]['timings']['seconds']}s; peak "
+            f"{b_peak} B ({b_peak / 2**30:.2f} GiB); the batch's denoise "
+            f"launches {three[0] if three else None} (plan at UNet batch "
+            f"96: {plan}); rel-L2 of each batch video against the three "
+            f"sync requests' frames {[[f'{x:.3e}' for x in r] for r in rels]}"
+            f" (bar {REL_L2_TOL}, own call on the diagonal), max levels from "
+            f"its own {[levels(v, s['frames']) for v, s in zip(vids, sync)]}")
+        if bsvc.batches_run != 2 or sizes != [3, 3, 3, 1] or len(three) != 1:
+            raise SystemExit(f"serve: batches_run {bsvc.batches_run}, sizes "
+                             f"{sizes}, runs {per_req}")
+        bad = {k: (three[0][k], n) for k, n in plan.items() if three[0][k] != n}
+        if bad:
+            raise SystemExit(f"serve: the batch's denoise launches against "
+                             f"the plan at UNet batch 96: {bad}")
+        check_no_forms({"denoise": three[0]}, "served batch")
+        for b, r in enumerate(rels):
+            others = [x for i, x in enumerate(r) if i != b]
+            if not (r[b] < REL_L2_TOL and r[b] < min(others)):
+                raise SystemExit(f"serve: batch video {b} against the sync "
+                                 f"calls {r}: not its own within the bar")
+        check_frames(vids[3], (F_, H, W, 3), True, "served 10-step request")
+
+        # 4. the job route with progress, and the journal recovered
+        t0 = time.time()
+        code, sub = http_call(server.port, "POST", "/jobs", dict(SERVE_REQUESTS[0]))
+        steps_seen = []
+
+        def poll():
+            deadline = time.time() + HANG_BUDGET_S
+            while time.time() < deadline:
+                c, st = http_call(server.port, "GET", f"/jobs/{sub['job_id']}")
+                if "progress" in st:
+                    steps_seen.append(st["progress"]["step"])
+                if st["status"] in ("done", "error"):
+                    return c, st
+                time.sleep(0.02)
+            raise SystemExit(f"serve: job {sub} never finished")
+
+        code_st, st = in_threads(poll)[0]
+        job_s = time.time() - t0
+        code_r, res = in_threads(lambda: http_call(
+            server.port, "GET", f"/jobs/{sub['job_id']}/result"))[0]
+        job_frames = frames_of(res)
+
+        class Counting:
+            calls = 0
+            pipe = None
+
+            def generate(self, request):
+                Counting.calls += 1
+                raise RuntimeError("a recovered finished job ran again")
+
+        jm2 = JobManager({"t2v": Counting()}, journal_dir=journal)
+        rec = jm2.status(sub["job_id"])
+        rec_res = jm2.result(sub["job_id"])
+        rising = sorted(set(steps_seen))
+        log(f"[serve] POST /jobs: {code} {sub}; {len(steps_seen)} polls saw "
+            f"steps {rising[:6]}...{rising[-3:]}, final {st}; result {code_r}, "
+            f"max {levels(job_frames, sync[0]['frames'])} levels from the sync "
+            f"route's frames; {job_s:.3f}s submit to done; a second "
+            f"JobManager on the journal: {rec}, result equal "
+            f"{rec_res == res}, generate calls {Counting.calls}")
+        if code != 202 or code_st != 200 or st["status"] != "done" \
+                or st.get("progress") != {"step": TIMED_STEPS, "total": TIMED_STEPS} \
+                or steps_seen != sorted(steps_seen) or len(rising) < 2:
+            raise SystemExit(f"serve: job {st}, progress seen {steps_seen}")
+        if code_r != 200 or levels(job_frames, sync[0]["frames"]) > 1:
+            raise SystemExit("serve: the job's frames are not the sync route's")
+        if rec != {"job_id": sub["job_id"], "status": "done"} \
+                or rec_res != res or Counting.calls:
+            raise SystemExit(f"serve: journal recovery {rec}, calls "
+                             f"{Counting.calls}")
+
+        # 5. video2video over HTTP: phase 7's frames at strength 0.6
+        body = dict(SERVE_REQUESTS[0], strength=V2V_STRENGTH, video=[
+            base64.b64encode(p).decode("ascii") for p in pngs])
+        t0 = time.time()
+        code, out = in_threads(lambda: http_call(server.port, "POST", "/v2v",
+                                                 body))[0]
+        v2v_s = time.time() - t0
+        if code != 200:
+            raise SystemExit(f"serve: POST /v2v {code} {str(out)[:300]}")
+        v2v = frames_of(out)
+        v2v_rel = rel(v2v, v2v_frames)
+        log(f"[serve] POST /v2v ({len(clip)} frames, strength {V2V_STRENGTH}): "
+            f"{code} in {v2v_s:.3f}s (server's {out['timings']['seconds']}s); "
+            f"against phase 15's direct call rel-L2 {v2v_rel:.3e} (bar "
+            f"{REL_L2_TOL}), max {levels(v2v, v2v_frames)} levels")
+        if not v2v_rel < REL_L2_TOL:
+            raise SystemExit(f"serve: v2v {v2v_rel} from the direct call")
+    finally:
+        batched.denoise_batch = real_denoise
+        server.stop()
+        bserver.stop()
+        shutil.rmtree(journal, ignore_errors=True)
+
+    # 6. the tracer on the UNet: one 512 forward, the launches unchanged
+    x, t, ctx = first_step_inputs(pipe)
+    with torch.inference_mode():
+        reset_counters()
+        plain = pipe.unet(x, t, ctx)
+        plain_launches = read_counters()
+        # every module of the UNet whose forward runs, by a global hook
+        names = {id(m): n for n, m in pipe.unet.named_modules()}
+        ran = set()
+
+        def seen(module, args, out):
+            if id(module) in names:
+                ran.add(names[id(module)])
+
+        hook = torch.nn.modules.module.register_module_forward_hook(seen)
+        try:
+            pipe.unet(x, t, ctx)
+        finally:
+            hook.remove()
+        tracer = ForwardTracer(pipe.unet)
+        reset_counters()
+        traced = tracer.trace(x, t, ctx)
+        traced_launches = read_counters()
+    hooks_left = sum(len(m._forward_hooks) for m in pipe.unet.modules())
+    same = torch.equal(plain, traced)
+    log(f"[serve] ForwardTracer on the UNet, one {H}x{W} forward: "
+        f"{len(tracer.traces)} modules recorded, {len(ran)} submodules ran a "
+        f"forward, {len(tracer.find_shape_changes())} change shape; launches "
+        f"traced {traced_launches} against untraced {plain_launches}; output "
+        f"torch.equal to the untraced call: {same}; hooks left {hooks_left}")
+    if len(tracer.traces) != len(ran) or traced_launches != plain_launches \
+            or hooks_left:
+        raise SystemExit("serve: the tracer missed modules or changed the "
+                         "kernels' launches")
+
+    summary = dict(
+        sync_s=[x["secs"] for x in sync],
+        sync_server_s=[x["server_s"] for x in sync],
+        batch_s=b_secs, batch_server_s=results[0][1]["timings"]["seconds"],
+        batch_s_per_video=results[0][1]["timings"]["seconds"] / 3,
+        other_s=results[3][1]["timings"]["seconds"], batch_peak=b_peak,
+        batch_launches=three[0], batch_rel_l2=rels, job_s=job_s,
+        job_polls=len(steps_seen), v2v_s=v2v_s, v2v_rel_l2=v2v_rel,
+        served_vs_direct_levels=direct, png=codec,
+        traced_modules=len(tracer.traces), tracer_output_equal=same,
+        phase_s=time.time() - t_phase)
+    log(f"[serve] phase done ({summary['phase_s']:.1f}s)")
+    path = dict(secs=results[0][1]["timings"]["seconds"],
+                by_stage={"denoise": three[0]}, peak=b_peak, frames=3 * F_,
+                steps=TIMED_STEPS, videos=3)
+    return path, summary
+
 
 def main() -> int:
     faulthandler.dump_traceback_later(HANG_BUDGET_S, exit=True)
@@ -2374,6 +2782,11 @@ def main() -> int:
     study = run_study(pipe, gn_per_call)
     torch.cuda.empty_cache()
 
+    # 22. the main path served over HTTP: sync, batched, job and v2v routes
+    paths["serve"], serving = run_serving(pipe, clip512,
+                                          paths["v2v"].pop("video"), gn_per_call)
+    torch.cuda.empty_cache()
+
     # Counts are per kernel at every shape, within the row's stage of its
     # path's run: the denoise loop of a timed call (per step), its VAE
     # encode and decode (per chunk), the GN dispatch at 2560 channels, the
@@ -2416,7 +2829,7 @@ def main() -> int:
         for p, d in paths.items()},
         "samplers": sampler_runs, "knobs": knobs, "pab": pab,
         "context": context, "lora": lora, "checkpoints": checkpoints,
-        "study": study,
+        "study": study, "serving": serving,
         # every flash attention counter (kernels.flash_attention
         # .launch_counts) with its launches at phase 3's edges
         "edge_launches": edge_launches,

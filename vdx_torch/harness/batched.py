@@ -38,10 +38,21 @@ def group_configs(configs: Sequence[ExperimentConfig]):
     return [(k, list(g)) for k, g in itertools.groupby(ordered, key=keyf)]
 
 
+def batch_context(pipe, configs: Sequence[ExperimentConfig]) -> torch.Tensor:
+    """N experiments' prompt pairs -> the batch's context [2N, 77, D],
+    (uncond x N, cond x N), the order the loop's CFG split expects."""
+    ctx = [pipe.encode_prompt(c.prompt, c.negative_prompt) for c in configs]
+    return torch.cat([torch.stack([x[0] for x in ctx]),
+                      torch.stack([x[1] for x in ctx])])
+
+
 def denoise_batch(pipe, configs: Sequence[ExperimentConfig],
-                  scheduler: str = "ddim") -> torch.Tensor:
+                  scheduler: str = "ddim", context=None) -> torch.Tensor:
     """The denoise loop of N experiments of one group as one batch ->
-    their final latents [N, F, h, w, C] on the pipeline's device."""
+    their final latents [N, F, h, w, C] on the pipeline's device.
+    ``context``: :func:`batch_context` of ``configs``, when the caller
+    encoded the prompts already (the server does, outside its device
+    lock)."""
     if getattr(pipe, "pab", None) is not None or getattr(pipe, "skip", None) is not None:
         raise ValueError(
             "the batched runner runs its own denoise loop and does not "
@@ -56,10 +67,8 @@ def denoise_batch(pipe, configs: Sequence[ExperimentConfig],
     ds = pipe.vae.config.downscale
     shape = (F, H // ds, W // ds, pipe.unet.config.in_channels)
     dev = pipe.device
-    ctx = [pipe.encode_prompt(c.prompt, c.negative_prompt) for c in configs]
-    # (uncond x N, cond x N), the order the loop's CFG split expects
-    context = torch.cat([torch.stack([x[0] for x in ctx]),
-                         torch.stack([x[1] for x in ctx])])
+    if context is None:
+        context = batch_context(pipe, configs)
     scales = torch.tensor([c.guidance_scale for c in configs],
                           dtype=torch.float32, device=dev).view(-1, 1, 1, 1, 1)
     tables = pipe._get_tables(scheduler, steps)

@@ -21,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -82,6 +83,9 @@ _SIGNATURES = {
 }
 
 _lib = None
+# lib()'s first use may come from several threads at once (the server's
+# request handlers, its batching and job workers): one builds and loads
+_lib_lock = threading.Lock()
 build_info: dict = {}
 
 
@@ -126,7 +130,9 @@ def build() -> Path:
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    tag = f".{os.getpid()}"
+    # objects and the temporary library are this process's and thread's
+    # own, so two processes or threads never write the same file
+    tag = f".{os.getpid()}.{threading.get_ident()}"
     objs, procs = [], []
     for src in sorted(CSRC_DIR.glob("*.cu")):
         obj = BUILD_DIR / (src.stem + tag + ".o")
@@ -163,17 +169,20 @@ def build() -> Path:
 
 
 def lib() -> ctypes.CDLL:
-    """The loaded kernel library (built on first use)."""
+    """The loaded kernel library, built and loaded once per process on
+    first use, whichever threads ask at once."""
     global _lib
     if _lib is None:
-        handle = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(handle, name)
-            fn.argtypes = argtypes
-            fn.restype = _I
-        handle.vdx_error_string.argtypes = [_I]
-        handle.vdx_error_string.restype = ctypes.c_char_p
-        _lib = handle
+        with _lib_lock:
+            if _lib is None:
+                handle = ctypes.CDLL(str(build()))
+                for name, argtypes in _SIGNATURES.items():
+                    fn = getattr(handle, name)
+                    fn.argtypes = argtypes
+                    fn.restype = _I
+                handle.vdx_error_string.argtypes = [_I]
+                handle.vdx_error_string.restype = ctypes.c_char_p
+                _lib = handle
     return _lib
 
 
