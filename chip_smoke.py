@@ -18,6 +18,9 @@ Phases, one flushed line each with its seconds:
      once through ops.groupnorm with the counters reset; the new sites
      of phases 14 and 15 (K1 at [64,4096,8,40] and [64,1024,8,80], GN at
      the batch's UNet and motion shapes and every VAE encoder GN site);
+     the families' new sites (K1 at head dim 64: [32,1024,5,64] for
+     ModelScope, [50,9216,5,64], [50,2304,10,64] and [50,576,20,64] for
+     SVD; GN at the UNet3D, SVD UNet, temporal decoder and encoder shapes);
      then one [gn] line a path (a UNet call, a decode chunk and an encode
      chunk at 512 and 768, a two-video UNet call at 512): every
      GroupNorm of it through ops.groupnorm with the counters reset, its
@@ -137,6 +140,28 @@ Phases, one flushed line each with its seconds:
      15's direct call (REL_L2_TOL); a ForwardTracer over one 512 UNet
      forward (every submodule that runs a forward recorded; K1/K2/K3
      launches equal to the untraced forward's)
+ 23. ModelScope: TextToVideoMSPipeline at full width (UNet3D at
+     UNet3DConfig.modelscope(), the ViT-H text tower, the SD VAE; bf16,
+     seeded random weights, no all-zero kernel), after phase 22's
+     pipelines are freed: the GN sites of a UNet3D call and a decode chunk
+     ([gn] lines, launches against the plan), a warm-up, one denoiser
+     evaluation against the plain K1 and K2/K3 (REL_L2_TOL; K1 5 a UNet
+     call at [32, 1024, 5, 64], head dim 64 on the DP = 80 instance), the
+     timed call: 16 frames 256x256, 25 DDIM steps, CFG 7.5 (K1 125, K2/K3
+     by the plan; seconds a video, frames/s, peak memory)
+ 24. SVD: SVDImg2VidPipeline at full width (SVDUNetConfig.svd(), CLIP
+     ViT-H vision, the VAE encoder and the temporal decoder; bf16) on
+     phase 7's first frame resized to 576x1024 (Pillow's BILINEAR, as the
+     server resizes): the GN sites of a UNet call, a 5-frame decode chunk
+     and the image's encode ([gn] lines), a 2-step warm-up, one denoiser
+     evaluation against the plain versions (K1 15 a UNet call at
+     [50, 9216, 5, 64], [50, 2304, 10, 64] and [50, 576, 20, 64]), the
+     timed call: 25 frames, 25 EDM steps, decode_chunk 5 (K1 375 in the
+     denoise loop only, K2/K3 by the plan in the encode, the loop and the
+     decode; the split between them from CUDA events; peak memory), then
+     one POST /img2vid through a GenerationServer with the port's
+     Img2VidService, its frames within one uint8 level of the direct
+     call's
 Phase 3 also checks the wgmma + TMA pipeline at its edges (Sq and Skv off
 the tiles, Skv under one tile, q/k/v as views into one fused projection,
 rows whose every scaled logit is below -46; every form at each head-dim
@@ -174,7 +199,7 @@ import time
 from functools import partial
 
 # a hang ends with a stack trace well before any outer time limit (1200 s
-# for the whole run); the run, build included, takes about five minutes
+# for the whole run); the run, build included, takes about six minutes
 # on an H100
 HANG_BUDGET_S = 900
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -250,6 +275,24 @@ SERVE_REQUESTS = (
      "seed": 77, "guidance_scale": 9.0},
 )
 SERVE_OTHER = {"prompt": PROMPT, "seed": 5, "num_inference_steps": 10}
+# phase 23: ModelScope (BASELINE.json configs[0]) at 16 frames 256x256,
+# DDIM (the pipeline's default), CFG 7.5; K1 at level 0 only (1024
+# tokens, D = 64: two down and three up sites), level 1 (256 tokens) eager
+MS_CALL = dict(negative_prompt=WORKLOAD["negative_prompt"], num_frames=16,
+               height=256, width=256, guidance_scale=7.5, decode_chunk=8,
+               seed=1234, output_type="np")
+MS_K1_PER_CALL = 5
+# phase 24: SVD (BASELINE.json configs[2]) at 25 frames 576x1024, EDM
+# (the pipeline's default), decode_chunk 5; K1 at levels 0-2 (9216, 2304
+# and 576 tokens, D = 64), five sites each; the mid block (144 tokens)
+# and every temporal and cross attention eager
+SVD_CALL = dict(num_frames=25, height=576, width=1024, decode_chunk=5,
+                seed=1234, output_type="np")
+SVD_FPS = 7
+SVD_K1_PER_CALL = 15
+# pipeline keyword overrides by family ("ms", "svd"); a CPU rehearsal
+# gives tiny configs, the fp32 policy and device="cpu"
+FAMILY_BUILD: dict = {}
 
 
 def log(msg: str) -> None:
@@ -349,7 +392,16 @@ def check_kernels(dev):
          True),
         ("K1", (96, 1024, 8, 80), "serve", "level-1 self-attn, 3 served videos",
          False),
+        # the families' head dim 64 on the DP = 80 instance (16 columns
+        # padded): ModelScope's level 0 (phase 23), SVD's levels 0-2 at
+        # CFG 2 x 25 frames (phase 24)
+        ("K1", (32, 1024, 5, 64), "ms", "level-0 self-attn", False),
+        ("K1", (50, 9216, 5, 64), "svd", "level-0 self-attn", True),
+        ("K1", (50, 2304, 10, 64), "svd", "level-1 self-attn", True),
+        ("K1", (50, 576, 20, 64), "svd", "level-2 self-attn", False),
     )
+    path_label = {"batch": "512x512", "serve": "512x512",
+                  "ms": "ModelScope 256x256", "svd": "SVD 576x1024"}
     static = dict(exp_impl="staticmax")
     for kname, (B, S, H, D), path, site, one_slice in attn_cases:
         t0 = time.time()
@@ -359,7 +411,17 @@ def check_kernels(dev):
                      (KA.flash_attention, KA.flash_attention_plain))
         q, k, v = (randn((B, S, H, D)) for _ in range(3))
         scale = D ** -0.5
+        before = KA.launch_counts()
         out = fn(q, k, v, scale=scale)
+        # the launch on the counter the routing rule names (K1 at D = 64
+        # on the DP = 80 instance's "K1", K4 on "K4"), and on no other
+        counter = KA.counter_for("staticmax" if kname == "K1" else None,
+                                 q.dtype, D, True)
+        moved = {n: c - before[n] for n, c in KA.launch_counts().items()
+                 if c != before[n]}
+        if moved != {counter: 1}:
+            raise SystemExit(f"{kname} [{B},{S},{H},{D}]: launches {moved}, "
+                             f"expected one on {counter!r}")
         ref = plain(q[:2], k[:2], v[:2], scale=scale)
         err = (out[:2].float() - ref.float()).abs()
         tol = bf16_tol(ref)
@@ -381,7 +443,7 @@ def check_kernels(dev):
                  "K4": "flash_attention running-max"}[kname]
         rows.append(dict(
             name=f"{kname} {label} [{B},{S},{H},{D}] ({site}, "
-                 f"{'512x512' if path in ('batch', 'serve') else f'{path}x{path}'})",
+                 f"{path_label.get(path, f'{path}x{path}')})",
             kernel=kname, path=path, stage="denoise", route="cuda",
             source="vdx_torch/csrc/flash_attention_sm90.cu",
             replaces=("vdx/kernels/flash_attention.py:204" if kname == "K1"
@@ -462,6 +524,28 @@ def check_kernels(dev):
          "VAE encoder down-3, mid and out GN-SiLU", "v2v", "encode"),
         ("K2", (8, 4096, 512), bf16, 1e-6, False,
          "VAE encoder mid-attention GN", "v2v", "encode"),
+        # ModelScope at 256x256 (phase 23): the level-0 resnet GN, and the
+        # TemporalConv GN over 16 frames and space
+        ("K2", (32, 1024, 320), bf16, 1e-5, True,
+         "UNet3D level-0 resnet GN-SiLU", "ms", "denoise"),
+        ("K3", (2, 16384, 320), bf16, 1e-5, True,
+         "UNet3D level-0 TemporalConv GN-SiLU, 16 frames", "ms", "denoise"),
+        # SVD at 576x1024 (phase 24): the spatial resnet GN at UNet batch
+        # 50, the temporal resblock's GN over 25 frames, the temporal
+        # decoder's GNs by 5-frame chunk and the conditioning image's
+        # encode
+        ("K2", (50, 9216, 320), bf16, 1e-5, True,
+         "SVD level-0 spatial resnet GN-SiLU", "svd", "denoise"),
+        ("K3", (2, 230400, 320), bf16, 1e-5, True,
+         "SVD level-0 temporal resblock GN-SiLU, 25 frames", "svd", "denoise"),
+        ("K3", (1, 2949120, 128), bf16, 1e-5, True,
+         "SVD temporal decoder tnorm GN-SiLU, 5 frames at 576x1024", "svd",
+         "decode"),
+        ("K3", (5, 589824, 128), bf16, 1e-6, True,
+         "SVD temporal decoder spatial GN-SiLU at 576x1024", "svd", "decode"),
+        ("K3", (1, 589824, 128), bf16, 1e-6, True,
+         "VAE encoder down-0 GN-SiLU, the SVD image at 576x1024", "svd",
+         "encode"),
     )
     for kname, (B, S, C), dtype, eps, silu, where, path, stage in gn_cases:
         t0 = time.time()
@@ -887,45 +971,67 @@ def read_counters() -> dict:
     return {k: fn.launches for k, fn in counters().items()} | form_counters()
 
 
-def counted_run(pipe, fn):
+def counted_run(pipe, fn, stage_ms=None):
     """``fn()`` with the counters reset just before it and read again as
-    the pipeline's VAE encode ends (video2video) and as its decode starts
-    (Python reads, no synchronise), which split each kernel's launches
-    between the encode, the denoise loop and the decode. The seconds run
-    to a synchronise after ``fn`` (output_type="device" returns before the
-    card is done). -> (result, seconds, seconds until ``fn`` returned,
+    the pipeline's conditioning ends (its VAE encode: video2video's clip,
+    SVD's image) and as its decode starts (Python reads, no synchronise),
+    which split each kernel's launches between the encode, the denoise
+    loop and the decode. The seconds run to a synchronise after ``fn``
+    (output_type="device" returns before the card is done). A dict
+    ``stage_ms`` gets each stage's device ms from CUDA events recorded at
+    the same marks. -> (result, seconds, seconds until ``fn`` returned,
     launches by stage, peak bytes)"""
     import torch
 
-    marks = {}
-    decode, encode = pipe._decode, pipe._encode
+    marks, events = {}, {}
+    decode, encode, prep = pipe._decode, pipe._encode, pipe._prepare_cond
+
+    def mark(name):
+        marks[name] = read_counters()
+        if stage_ms is not None:
+            events[name] = torch.cuda.Event(enable_timing=True)
+            events[name].record()
+
+    def counted_prep(*args, **kw):
+        out = prep(*args, **kw)
+        mark("encode")
+        return out
 
     def counted_encode(video, chunk):
         z = encode(video, chunk)
-        marks["encode"] = read_counters()
+        mark("encode")
         return z
 
-    def counted_decode(latents, chunk):
-        marks["decode"] = read_counters()
-        return decode(latents, chunk)
+    def counted_decode(latents, chunk, **opts):
+        mark("decode")
+        return decode(latents, chunk, **opts)
 
     pipe._decode, pipe._encode = counted_decode, counted_encode
+    pipe._prepare_cond = counted_prep
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counters()
+    mark("start")
     t0 = time.time()
     try:
         out = fn()
         returned = time.time() - t0
+        mark("end")
         torch.cuda.synchronize()
     finally:
-        del pipe._decode, pipe._encode
+        del pipe._decode, pipe._encode, pipe._prepare_cond
     secs = time.time() - t0
     launches = read_counters()
     enc = marks.get("encode", dict.fromkeys(launches, 0))
     by_stage = {"encode": enc,
                 "denoise": {k: marks["decode"][k] - enc[k] for k in launches},
                 "decode": {k: n - marks["decode"][k] for k, n in launches.items()}}
+    if stage_ms is not None:
+        e_enc = events.get("encode", events["start"])
+        stage_ms.update(
+            encode=events["start"].elapsed_time(e_enc),
+            denoise=e_enc.elapsed_time(events["decode"]),
+            decode=events["decode"].elapsed_time(events["end"]))
     return out, secs, returned, by_stage, torch.cuda.max_memory_allocated()
 
 
@@ -1626,9 +1732,11 @@ def sibling_of(pipe, **kw):
     modules)."""
     from vdx_torch.pipelines import AnimateDiffPipeline
 
-    p = AnimateDiffPipeline(pipe.unet.config, pipe.vae.config,
-                            pipe.text_encoder.config, pipe.tokenizer,
-                            pipe.policy, device=pipe.device, **kw)
+    p = AnimateDiffPipeline(unet_config=pipe.unet.config,
+                            vae_config=pipe.vae.config,
+                            text_config=pipe.text_encoder.config,
+                            tokenizer=pipe.tokenizer, policy=pipe.policy,
+                            device=pipe.device, **kw)
     if "attn_impl" in kw:
         p.unet.load_state_dict(pipe.unet.state_dict())
     else:
@@ -2564,6 +2672,284 @@ def run_serving(pipe, clip, v2v_frames, gn_per_call) -> tuple:
     return path, summary
 
 
+# ----------------------------------------------------------------------
+# phases 23-24: the ModelScope and SVD families
+# ----------------------------------------------------------------------
+def family_gn_expectations(dev) -> dict:
+    """Every GroupNorm of one UNet3D call (CFG batch 2 x 16 frames at
+    256x256) and one SD VAE decode chunk (8 frames), and of one SVD UNet
+    call (2 x 25 frames at 576x1024), one temporal-decoder chunk (5
+    frames) and the conditioning image's VAE encode, traced on the meta
+    device (scripts/bench_gn_torch.py), each driven through ops.groupnorm
+    as often as the path runs it with the GN counters reset: one [gn] line
+    a path, its launches checked against the launch plan
+    (kernels.groupnorm.gn_plan). -> {(path, "unet" | "decode" |
+    "encode"): {"K2": n, "K3": n}}"""
+    import torch
+
+    from vdx_torch.kernels import groupnorm as KG
+
+    bench = load_script("bench_gn_torch")
+    expected = {}
+    for path, family, args in (
+            ("ms", "modelscope", (MS_CALL["height"], MS_CALL["width"],
+                                  MS_CALL["num_frames"], MS_CALL["decode_chunk"])),
+            ("svd", "svd", (SVD_CALL["height"], SVD_CALL["width"],
+                            SVD_CALL["num_frames"], SVD_CALL["decode_chunk"]))):
+        for stage, sites in bench.family_gn_sites(family, *args).items():
+            t0 = time.time()
+            want = {"K2": 0, "K3": 0}
+            for (B, S, C, G, _, _), n in sites.items():
+                want[KG.gn_plan(B, S, C, G, 2).route] += n
+            launches = bench.drive(sites, dev)
+            log(f"[gn] {family} {stage}: {sum(sites.values())} GroupNorms "
+                f"({len(sites)} shapes) through ops.groupnorm, launches "
+                f"{launches} (plan {want}) ({time.time() - t0:.1f}s)")
+            if launches != want:
+                raise SystemExit(f"[gn] {family} {stage}: launches {launches}, "
+                                 f"the plan says {want}")
+            expected[(path, stage)] = want
+            torch.cuda.empty_cache()
+    return expected
+
+
+def check_random_weights(pipe, what: str) -> None:
+    """No zero-initialised kernel: every weight of two or more dims (the
+    convs, the frame convs whose vdx init is zeros, the linears) holds
+    seeded random values, so every branch reaches the output."""
+    zero = [f"{c}.{n}" for c, m in pipe._components().items()
+            for n, p in m.named_parameters() if p.dim() >= 2 and not p.any()]
+    if zero:
+        raise SystemExit(f"{what}: all-zero weights {zero[:5]}")
+
+
+def family_reference_eval(pipe, label: str, model_in, t_b, args,
+                          per_call: dict) -> float:
+    """One denoiser evaluation, kernel path against the same call with K1
+    and K2/K3 swapped for their plain versions; the kernel call's launches
+    against ``per_call``. -> rel-L2."""
+    import torch
+
+    t0 = time.time()
+    with torch.inference_mode():
+        reset_counters()
+        eps_k = pipe.unet(model_in, t_b, *args)
+        launches = read_counters()
+        with plain_versions("K1", "K2/K3"):
+            eps_p = pipe.unet(model_in, t_b, *args)
+        rel = rel_l2(eps_k, eps_p)
+    finite = bool(torch.isfinite(eps_k).all())
+    log(f"[{label}] UNet eval at the first step's input "
+        f"{list(model_in.shape)}: rel_l2(kernels vs plain K1+K2/K3)={rel:.3e} "
+        f"(bound {REL_L2_TOL}) finite={finite} launches_per_unet_call="
+        f"{launches} ({time.time() - t0:.1f}s)")
+    if not (finite and rel < REL_L2_TOL):
+        raise SystemExit(f"{label}: denoiser output disagrees with the plain "
+                         "versions")
+    bad = {k: n for k, n in per_call.items() if launches[k] != n}
+    if bad:
+        raise SystemExit(f"{label}: expected launches per UNet call "
+                         f"{per_call}, got {launches}")
+    return rel
+
+
+def check_family_launches(label: str, by_stage: dict, k1_per_step: int,
+                          gn: dict, path: str, steps: int, chunks: int,
+                          encodes: int = 0) -> None:
+    """A family's timed call: K1 ``k1_per_step`` a step in the denoise
+    loop and nowhere else, no K4 and no forms-kernel launch, and K2/K3 as
+    the plan says per UNet call, decode chunk and encode."""
+    if by_stage["denoise"]["K1"] != k1_per_step * steps \
+            or by_stage["decode"]["K1"] or by_stage["encode"]["K1"] \
+            or any(d["K4"] for d in by_stage.values()):
+        raise SystemExit(f"{label}: launches {by_stage}: expected K1 "
+                         f"{k1_per_step * steps} in the denoise loop only")
+    check_no_forms(by_stage, label)
+    for stage, times, site in (("denoise", steps, "unet"),
+                               ("decode", chunks, "decode"),
+                               ("encode", encodes, "encode")):
+        want = {k: n * times for k, n in gn.get((path, site), {}).items()}
+        got = {k: by_stage[stage][k] for k in ("K2", "K3")}
+        if got != (want or {"K2": 0, "K3": 0}):
+            raise SystemExit(f"{label}: GroupNorm launches in the {stage} "
+                             f"{got}, the plan says {want}")
+
+
+def run_modelscope(gn: dict) -> dict:
+    """Phase 23: TextToVideoMSPipeline at full width (UNet3D.modelscope(),
+    the ViT-H text tower, the SD VAE; bf16, seeded random weights): a
+    warm-up, one denoiser evaluation against the plain versions (K1 5 a
+    UNet call at [32, 1024, 5, 64]), then the timed call (16 frames
+    256x256, 25 DDIM steps, CFG 7.5) with its launches checked."""
+    import torch
+
+    from vdx_torch.core.dtypes import BF16_POLICY
+    from vdx_torch.pipelines import TextToVideoMSPipeline
+    from vdx_torch.schedulers import get_sampler
+
+    t_phase = time.time()
+    pipe = TextToVideoMSPipeline.with_random_params(
+        seed=0, **({"policy": BF16_POLICY} | FAMILY_BUILD.get("ms", {})))
+    n_params = {c: sum(p.numel() for p in m.parameters())
+                for c, m in pipe._components().items()}
+    check_random_weights(pipe, "modelscope")
+    log(f"[modelscope] params {n_params} {pipe.policy.compute_dtype} on "
+        f"{pipe.device}, scheduler {pipe.scheduler}, text "
+        f"{pipe.text_encoder.config}")
+    kw = dict(MS_CALL)
+    t0 = time.time()
+    pipe(PROMPT, num_inference_steps=2, **kw)
+    log(f"[modelscope] warm-up, 2 steps ({time.time() - t0:.1f}s)")
+
+    F_, H, W = kw["num_frames"], kw["height"], kw["width"]
+    ds = pipe.vae.config.downscale
+    with torch.inference_mode():
+        ctx = pipe.encode_prompt(PROMPT, kw["negative_prompt"])
+        tables = pipe._get_tables(pipe.scheduler, TIMED_STEPS)
+        lat = pipe.initial_noise((1, F_, H // ds, W // ds, 4), kw["seed"]) \
+            * tables.init_noise_sigma
+        model_in = get_sampler(pipe.scheduler).scale_model_input(
+            torch.cat([lat, lat]), 0, tables)
+    rel = family_reference_eval(pipe, "modelscope", model_in,
+                                tables.timesteps[0].expand(2), (ctx,),
+                                {"K1": MS_K1_PER_CALL, "K4": 0}
+                                | gn.get(("ms", "unet"), {}))
+    del ctx, lat, model_in
+    torch.cuda.empty_cache()
+
+    secs, frames, lat_finite, by_stage, peak = timed_call(
+        pipe, "modelscope", num_inference_steps=TIMED_STEPS, **kw)
+    chunks = F_ // kw["decode_chunk"]
+    check_family_launches("modelscope", by_stage, MS_K1_PER_CALL, gn, "ms",
+                          TIMED_STEPS, chunks)
+    check_frames(frames, (F_, H, W, 3), lat_finite, "modelscope")
+    log(f"[modelscope] {secs:.3f}s a video, {F_ / secs:.4f} frames/s, peak "
+        f"{peak} ({peak / 2**30:.2f} GiB); phase {time.time() - t_phase:.1f}s")
+    del pipe
+    return dict(secs=secs, by_stage=by_stage, peak=peak, frames=F_,
+                steps=TIMED_STEPS, chunks=chunks, rel_l2_unet_eval=rel,
+                params=n_params)
+
+
+def run_svd(gn: dict, frame) -> tuple:
+    """Phase 24: SVDImg2VidPipeline at full width (SVDUNetConfig.svd(),
+    CLIP ViT-H vision, the VAE encoder and the temporal decoder; bf16) on
+    ``frame`` (phase 7's first frame) resized to 576x1024 as the server
+    resizes a client's image: a 2-step warm-up, one denoiser evaluation
+    against the plain versions (K1 15 a UNet call at [50, 9216, 5, 64],
+    [50, 2304, 10, 64] and [50, 576, 20, 64]), the timed call (25 frames,
+    25 EDM steps, decode_chunk 5) with its launches checked by stage and
+    its time split by CUDA events, then one POST /img2vid through a
+    GenerationServer with the port's Img2VidService against the direct
+    call's frames (one uint8 level)."""
+    import base64
+
+    import numpy as np
+    import torch
+
+    from vdx_torch.core.dtypes import BF16_POLICY
+    from vdx_torch.io.png import decode_pngs, encode_png
+    from vdx_torch.ops.resize import resize_bilinear_u8
+    from vdx_torch.pipelines import SVDImg2VidPipeline
+    from vdx_torch.schedulers import get_sampler
+    from vdx_torch.serving import (GenerationServer, GenerationService,
+                                   Img2VidService)
+
+    t_phase = time.time()
+    pipe = SVDImg2VidPipeline.with_random_params(
+        seed=0, **({"policy": BF16_POLICY} | FAMILY_BUILD.get("svd", {})))
+    n_params = {c: sum(p.numel() for p in m.parameters())
+                for c, m in pipe._components().items()}
+    check_random_weights(pipe, "svd")
+    kw = dict(SVD_CALL)
+    F_, H, W = kw["num_frames"], kw["height"], kw["width"]
+    image = resize_bilinear_u8(frame, W, H).astype(np.float32) / 255.0
+    log(f"[svd] params {n_params} {pipe.policy.compute_dtype} on "
+        f"{pipe.device}, scheduler {pipe.scheduler}; image {list(frame.shape)} "
+        f"-> {list(image.shape)}")
+    t0 = time.time()
+    pipe(image, num_inference_steps=2, **kw)
+    log(f"[svd] warm-up, 2 steps ({time.time() - t0:.1f}s)")
+
+    ds = pipe.vae.config.downscale
+    shape = (1, F_, H // ds, W // ds, pipe.latent_channels)
+    img = torch.as_tensor(image, device=pipe.device)[None] * 2.0 - 1.0
+    cond = (img, float(SVD_FPS - 1), 127.0, 0.02)
+    with torch.inference_mode():
+        prep = pipe._prepare_cond(kw["seed"], cond, shape)
+        tables = pipe._get_tables(pipe.scheduler, TIMED_STEPS)
+        lat = pipe.initial_noise(shape, prep["key"]) * tables.init_noise_sigma
+        model_in = get_sampler(pipe.scheduler).scale_model_input(
+            torch.cat([lat, lat]), 0, tables)
+        model_in = torch.cat([model_in, prep["concat"].to(model_in.dtype)], -1)
+    rel = family_reference_eval(pipe, "svd", model_in,
+                                tables.timesteps[0].expand(2), prep["den_args"],
+                                {"K1": SVD_K1_PER_CALL, "K4": 0}
+                                | gn.get(("svd", "unet"), {}))
+    del prep, lat, model_in
+    torch.cuda.empty_cache()
+
+    stage_ms = {}
+    out, secs, returned, by_stage, peak = counted_run(
+        pipe, lambda: pipe(image, num_inference_steps=TIMED_STEPS, fps=SVD_FPS,
+                           **kw), stage_ms)
+    frames = out.frames[0]
+    chunks = F_ // kw["decode_chunk"]
+    log(f"[svd] {TIMED_STEPS} EDM steps + temporal decode: {secs:.3f}s "
+        f"(returned after {returned:.3f}s) frames/s={F_ / secs:.4f} "
+        f"split: encode+vision {stage_ms['encode']:.1f} ms, denoise "
+        f"{stage_ms['denoise']:.1f} ms, decode {stage_ms['decode']:.1f} ms "
+        f"(CUDA events) max_memory_allocated={peak} ({peak / 2**30:.2f} GiB) "
+        f"encode={by_stage['encode']} denoise={by_stage['denoise']} "
+        f"decode={by_stage['decode']} frames {frames.shape} {frames.dtype} "
+        f"min={int(frames.min())} max={int(frames.max())} "
+        f"mean={float(frames.mean()):.2f}")
+    check_family_launches("svd", by_stage, SVD_K1_PER_CALL, gn, "svd",
+                          TIMED_STEPS, chunks, encodes=1)
+    check_frames(frames, (F_, H, W, 3),
+                 bool(torch.isfinite(out.latents).all()), "svd")
+
+    # POST /img2vid: phase 7's frame as a client's PNG, resized by the
+    # service; the same request as the direct call above
+    svc = GenerationService(pipe, {})
+    server = GenerationServer(svc, port=0, img2vid_service=Img2VidService(
+        pipe, dict(num_inference_steps=TIMED_STEPS, fps=SVD_FPS, **{
+            k: kw[k] for k in ("num_frames", "height", "width",
+                               "decode_chunk")}), lock=svc.device_lock))
+    server.start()
+    try:
+        body = {"image": base64.b64encode(encode_png(frame)).decode("ascii"),
+                "seed": kw["seed"]}
+        t0 = time.time()
+        code, payload = in_threads(
+            lambda: http_call(server.port, "POST", "/img2vid", body))[0]
+        client_s = time.time() - t0
+        _, health = in_threads(lambda: http_call(server.port, "GET",
+                                                 "/healthz"))[0]
+    finally:
+        server.stop()
+    if code != 200:
+        raise SystemExit(f"svd: POST /img2vid {code} {payload}")
+    served = decode_pngs([base64.b64decode(f) for f in payload["frames"]])
+    levels = int(np.abs(served.astype(np.int16) - frames.astype(np.int16)).max())
+    log(f"[svd] POST /img2vid: {code}, {client_s:.3f}s on the client's clock "
+        f"({payload['timings']['seconds']}s on the server's), frames "
+        f"{served.shape}, max |served - direct| {levels} uint8 levels; "
+        f"/healthz img2vid {health.get('img2vid')}")
+    if served.shape != frames.shape or levels > 1 \
+            or health.get("img2vid", {}).get("requests_served") != 1:
+        raise SystemExit("svd: /img2vid differs from the direct call")
+    log(f"[svd] {secs:.3f}s a video; phase {time.time() - t_phase:.1f}s")
+    del pipe, svc, server
+    path = dict(secs=secs, by_stage=by_stage, peak=peak, frames=F_,
+                steps=TIMED_STEPS, chunks=chunks, encode_chunks=1)
+    summary = dict(stage_ms=stage_ms, rel_l2_unet_eval=rel, params=n_params,
+                   img2vid_client_s=client_s,
+                   img2vid_server_s=payload["timings"]["seconds"],
+                   img2vid_max_levels=levels)
+    return path, summary
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(HANG_BUDGET_S, exit=True)
     t_start = time.time()
@@ -2786,6 +3172,21 @@ def main() -> int:
     paths["serve"], serving = run_serving(pipe, clip512,
                                           paths["v2v"].pop("video"), gn_per_call)
     torch.cuda.empty_cache()
+    svd_frame = clip512[0]  # phase 24's conditioning image
+
+    # free AnimateDiff's pipeline: each family's peak is its own
+    del pipe, clip512
+    torch.cuda.empty_cache()
+
+    # 23. ModelScope: UNet3D, 16 frames 256x256, 25 DDIM steps
+    family_gn = family_gn_expectations(dev)
+    paths["ms"] = run_modelscope(family_gn)
+    torch.cuda.empty_cache()
+
+    # 24. SVD: 25 frames 576x1024, 25 EDM steps, the temporal decoder,
+    # one POST /img2vid
+    paths["svd"], svd = run_svd(family_gn, svd_frame)
+    torch.cuda.empty_cache()
 
     # Counts are per kernel at every shape, within the row's stage of its
     # path's run: the denoise loop of a timed call (per step), its VAE
@@ -2805,7 +3206,9 @@ def main() -> int:
         if r["stage"] == "denoise":
             out["launches_per_step"] = n / paths[r["path"]]["steps"]
         elif r["stage"] in ("decode", "encode"):
-            out["launches_per_chunk"] = n / paths[r["path"]]["chunks"]
+            d = paths[r["path"]]
+            out["launches_per_chunk"] = n / d.get(f"{r['stage']}_chunks",
+                                                  d["chunks"])
         elif r["stage"] == "sites":
             out["launches_per_site"] = n / n_sites
         return out
@@ -2830,6 +3233,8 @@ def main() -> int:
         "samplers": sampler_runs, "knobs": knobs, "pab": pab,
         "context": context, "lora": lora, "checkpoints": checkpoints,
         "study": study, "serving": serving,
+        "modelscope": {k: paths["ms"][k] for k in ("rel_l2_unet_eval", "params")},
+        "svd": svd,
         # every flash attention counter (kernels.flash_attention
         # .launch_counts) with its launches at phase 3's edges
         "edge_launches": edge_launches,

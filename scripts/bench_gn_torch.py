@@ -98,6 +98,59 @@ def gpu_ms(fn, reps: int = REPS, trials: int = TRIALS) -> float:
     return sorted(times)[len(times) // 2]
 
 
+def family_gn_sites(family: str, height: int, width: int, frames: int,
+                    chunk: int):
+    """The same for the other families at full width, traced on the meta
+    device: "modelscope" (one UNet3D call, CFG batch 2 x ``frames``; one
+    SD VAE decode chunk of ``chunk`` frames) or "svd" (one
+    UNetSpatioTemporal call; one temporal-decoder chunk of ``chunk``
+    frames; the VAE encode of the one conditioning image)."""
+    import torch
+
+    from vdx_torch.models.vae import AutoencoderKL, TemporalDecoder, VAEConfig
+    from vdx_torch.nn.resnet import GroupNormModule
+
+    sites = collections.defaultdict(collections.Counter)
+    where = []
+
+    def record(mod, args):
+        x = args[0]
+        sites[where[-1]][(x.shape[0], math.prod(x.shape[1:-1]), x.shape[-1],
+                          mod.num_groups, mod.eps, mod.with_silu)] += 1
+
+    h, w = height // 8, width // 8
+    with torch.device("meta"), torch.inference_mode():
+        vae = AutoencoderKL(VAEConfig())
+        if family == "modelscope":
+            from vdx_torch.models.unet3d import UNet3D, UNet3DConfig
+
+            unet, nets = UNet3D(UNet3DConfig()), ()
+        else:
+            from vdx_torch.models.svd_unet import (SVDUNetConfig,
+                                                   UNetSpatioTemporal)
+
+            unet, nets = UNetSpatioTemporal(SVDUNetConfig()), \
+                (TemporalDecoder(VAEConfig()),)
+        for net in (unet, vae) + nets:
+            for m in net.modules():
+                if isinstance(m, GroupNormModule):
+                    m.register_forward_pre_hook(record)
+        where.append("unet")
+        if family == "modelscope":
+            unet(torch.empty(2, frames, h, w, 4), torch.empty(2),
+                 torch.empty(2, 77, 1024))
+            where.append("decode")
+            vae.decode(torch.empty(chunk, h, w, 4))
+        else:
+            unet(torch.empty(2, frames, h, w, 8), torch.empty(2),
+                 torch.empty(2, 1, 1024), torch.empty(2, 3))
+            where.append("decode")
+            nets[0](torch.empty(chunk, h, w, 4), chunk)
+            where.append("encode")
+            vae.encode_moments(torch.empty(1, height, width, 3))
+    return dict(sites)
+
+
 def site_inputs(site, dev, seed: int = 0):
     import torch
 

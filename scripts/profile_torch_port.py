@@ -1,19 +1,24 @@
 #!/usr/bin/env python3
-"""Where the time goes in vdx_torch's AnimateDiff workload, on one GPU.
+"""Where the time goes in vdx_torch's workloads, on one GPU.
 
     python3 scripts/profile_torch_port.py                      # 512x512, DDIM
     python3 scripts/profile_torch_port.py --size 768 --scheduler euler
     python3 scripts/profile_torch_port.py --video2video         # + an encode chunk
+    python3 scripts/profile_torch_port.py --family modelscope   # 256x256, DDIM
+    python3 scripts/profile_torch_port.py --family svd          # 576x1024, EDM
 
-Builds the SD-1.5-width pipeline (bf16, random weights from seed 0), warms
-it up, then traces with ``torch.profiler`` one denoising step of the given
-sampler (one CFG-batched UNet call over 2 x 16 frames at size/8 latents)
-and one VAE decode chunk (8 frames to size x size); with
-``--video2video`` also one VAE encode chunk (8 frames of size x size, the
-video2video path's encoder). Prints, per phase, the wall time, the
-summed device-kernel time by category and the device idle share
-(1 - kernel time / wall time), then the top kernels by device time. The
-categories are read off the kernel names.
+Builds the family's full-width pipeline (bf16, random weights from seed
+0), warms it up, then traces with ``torch.profiler`` one denoising step of
+the sampler (one CFG-batched UNet call, the CFG combine and the update)
+and one decode chunk. AnimateDiff: 2 x 16 frames at size/8 latents, an
+8-frame VAE decode chunk, and with ``--video2video`` one 8-frame VAE
+encode chunk. ModelScope (UNet3D): 2 x 16 frames, an 8-frame chunk.
+SVD: 2 x 25 frames at 576x1024 with the conditioning concatenated, a
+5-frame temporal-decoder chunk, and the image's conditioning (VAE encode
+and CLIP vision). Prints, per phase, the wall time, the summed
+device-kernel time by category and the device idle share (1 - kernel
+time / wall time), then the top kernels by device time. The categories
+are read off the kernel names.
 """
 
 from __future__ import annotations
@@ -86,12 +91,84 @@ def profile(fn, label):
         print(f"[{label}]   top {ms:8.2f} ms x{counts[name]:<4d} {name[:110]}")
 
 
+def phases_of(args, torch):
+    """-> [(fn, label)] of the family's traced phases."""
+    from vdx_torch.core.dtypes import BF16_POLICY
+    from vdx_torch.pipelines.base import _Carry, _Request
+    from vdx_torch.schedulers import get_sampler, is_multistep
+
+    if args.family == "svd":
+        import numpy as np
+
+        from vdx_torch.pipelines import SVDImg2VidPipeline
+
+        scheduler = args.scheduler or "edm"
+        pipe = SVDImg2VidPipeline.with_random_params(
+            seed=0, policy=BF16_POLICY, scheduler=scheduler, device="cuda")
+        F_, H, W, chunk = 25, 576, 1024, 5
+        print(f"svd {F_} x {H}x{W}, {scheduler}", flush=True)
+        img = torch.rand((1, H, W, 3), device="cuda") * 2 - 1
+        cond = (img, 6.0, 127.0, 0.02)
+        shape = (1, F_, H // 8, W // 8, 4)
+        prep = pipe._prepare_cond(1234, cond, shape)
+        gs = np.linspace(1.0, 3.0, F_, dtype=np.float32).reshape(1, F_, 1, 1, 1)
+        scale = torch.as_tensor(gs, device="cuda")
+        den_args, concat, key = prep["den_args"], prep["concat"], prep["key"]
+
+        def decode():
+            pipe.temporal_decoder(z, chunk)
+
+        extra = [(lambda: pipe._prepare_cond(1234, cond, shape),
+                  "conditioning (VAE encode + CLIP vision)")]
+    else:
+        from vdx_torch.pipelines import (AnimateDiffPipeline,
+                                         TextToVideoMSPipeline)
+
+        ms = args.family == "modelscope"
+        cls = TextToVideoMSPipeline if ms else AnimateDiffPipeline
+        scheduler = args.scheduler or "ddim"
+        pipe = cls.with_random_params(seed=0, policy=BF16_POLICY,
+                                      scheduler=scheduler, device="cuda")
+        size = args.size or (256 if ms else 512)
+        F_, H, W, chunk = 16, size, size, 8
+        print(f"{args.family} {F_} x {H}x{W}, {scheduler}", flush=True)
+        ctx = pipe.encode_prompt("a corgi walking on the beach", "blurry")
+        shape = (1, F_, H // 8, W // 8, 4)
+        den_args, concat, key, scale = (ctx,), None, 1234, 7.5
+        frames = torch.rand((chunk, H, W, 3), device="cuda") * 2 - 1
+
+        def decode():
+            pipe.vae.decode(z)
+
+        extra = ([(lambda: pipe.vae.encode(frames), "encode chunk")]
+                 if args.video2video else [])
+    tables = pipe._get_tables(scheduler, 25)
+    noise = pipe.initial_noise(shape, key)
+    lat = noise * tables.init_noise_sigma
+    z = noise[0, :chunk]
+    req = _Request(None, True, scale, scheduler, tables, None, 25,
+                   den_args=den_args, concat=concat)
+    sampler = get_sampler(scheduler)
+
+    def step():
+        carry = _Carry(lat, sampler.init_state(lat)
+                       if is_multistep(scheduler) else None)
+        pipe._step(req, carry, pipe._eval(req, lat, 0), 0)
+
+    return [(step, "denoise step"), (decode, "decode chunk")] + extra
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--size", type=int, default=512, help="frame height and width")
-    ap.add_argument("--scheduler", default="ddim")
+    ap.add_argument("--family", default="animatediff",
+                    choices=["animatediff", "modelscope", "svd"])
+    ap.add_argument("--size", type=int, default=0,
+                    help="frame height and width (text families; default "
+                         "512 AnimateDiff, 256 ModelScope)")
+    ap.add_argument("--scheduler", default=None,
+                    help="default ddim (text families), edm (SVD)")
     ap.add_argument("--video2video", action="store_true",
-                    help="also trace one VAE encode chunk")
+                    help="AnimateDiff: also trace one VAE encode chunk")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
     import torch
@@ -105,37 +182,8 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True).stdout.strip(),
         flush=True)
 
-    from vdx_torch.core.dtypes import BF16_POLICY
-    from vdx_torch.pipelines import AnimateDiffPipeline
-    from vdx_torch.schedulers import get_sampler, is_multistep
-
-    pipe = AnimateDiffPipeline.with_random_params(
-        seed=0, policy=BF16_POLICY, scheduler=args.scheduler, device="cuda")
-    print(f"{args.size}x{args.size}, {args.scheduler}", flush=True)
     with torch.inference_mode():
-        ctx = pipe.encode_prompt("a corgi walking on the beach", "blurry")
-        tables = pipe._get_tables(args.scheduler, 25)
-        hw = args.size // pipe.vae.config.downscale
-        noise = pipe.initial_noise((1, 16, hw, hw, 4), 1234)
-        lat = noise * tables.init_noise_sigma
-        state = (get_sampler(args.scheduler).init_state(lat)
-                 if is_multistep(args.scheduler) else None)
-        z = noise[0, :8]
-        frames = torch.rand((8, args.size, args.size, 3), device="cuda") * 2 - 1
-
-        def step():
-            pipe.denoise_step(lat, 0, ctx, 7.5, True, args.scheduler, tables,
-                              state)
-
-        def decode():
-            pipe.vae.decode(z)
-
-        def encode():
-            pipe.vae.encode(frames)
-
-        phases = [(step, "denoise step"), (decode, "decode chunk")]
-        if args.video2video:
-            phases.append((encode, "encode chunk"))
+        phases = phases_of(args, torch)
         for _ in range(2):  # warm-up: kernel build, cuDNN plans, allocator
             for fn, _ in phases:
                 fn()

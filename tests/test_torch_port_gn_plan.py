@@ -3,7 +3,9 @@
 * The launch plan (``kernels.groupnorm.gn_plan``: route, stripe, cluster,
   rows a CTA, shared bytes) at every GroupNorm site of the SD-1.5
   AnimateDiff UNet, VAE decoder and VAE encoder at 512x512, 768x768,
-  1024x576 and 1024x1024, in bf16 and fp32: stripes are whole groups on 16-byte
+  1024x576 and 1024x1024, and of the ModelScope UNet3D (256x256, 16
+  frames) and the SVD UNet, temporal decoder and encoder (576x1024, 25
+  frames, 5-frame decode chunks), in bf16 and fp32: stripes are whole groups on 16-byte
   boundaries, the shared bytes fit 227 KB, the cluster is within its
   limit, and the 512 and 768 paths route as ``chip_smoke.py`` checks on
   the card (STREAMED below).
@@ -179,6 +181,25 @@ STREAMED = {
 }
 
 
+def _family_sites() -> dict:
+    """{(family, path): Counter of (B, S, C, G, eps, silu)} traced on the
+    meta device by scripts/bench_gn_torch.py (what chip_smoke.py checks
+    the launches against)."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "scripts" / "bench_gn_torch.py"
+    spec = importlib.util.spec_from_file_location("bench_gn_torch", path)
+    bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench)
+    out = {}
+    for family, args in (("modelscope", (256, 256, 16, 8)),
+                         ("svd", (576, 1024, 25, 5))):
+        for p, sites in bench.family_gn_sites(family, *args).items():
+            out[(family, p)] = sites
+    return out
+
+
 def test_launch_plan_at_every_site():
     sizes = ((512, 512), (768, 768), (576, 1024), (1024, 1024))
     n_sites = 0
@@ -193,6 +214,19 @@ def test_launch_plan_at_every_site():
         if height == width and height in STREAMED:
             assert STREAMED[height] <= {s[:3] for s in sites}
     assert n_sites > 60
+    # the other families at full width (chip_smoke.py phases 23-24): the
+    # UNet3D call and SD VAE decode chunk at ModelScope's 16 x 256x256, the
+    # SVD UNet call (its frame-spanning tnorms over 25 frames), the
+    # temporal decoder's 5-frame chunk and the conditioning image's
+    # encode at 576x1024
+    family = _family_sites()
+    for path, sites in family.items():
+        for B, S, C, G, _, _ in sites:
+            for itemsize in (BF16, FP32):
+                _check_plan(B, S, C, G, itemsize)
+    assert (2, 16 * 1024, 320, 32) in {s[:4] for s in family[("modelscope", "unet")]}
+    assert (1, 5 * 576 * 1024, 128, 32) in {s[:4] for s in family[("svd", "decode")]}
+    assert sum(len(v) for v in family.values()) > 60
     # the widest stripe (4 groups of 30 channels) needs 16 CTAs at 768
     wide = KG.k2_plan(9216, 960, 32, BF16)
     assert (wide.cluster, wide.stripe_channels, wide.pair) == (16, 120, False)

@@ -8,7 +8,11 @@ vdx's on the CPU.
    decoding (the two packages' PNG bytes differ: Pillow's filters
    against the port's filter 0) and ``device``, ``avg_seconds``,
    ``timings`` and ``job_id`` left out. Each package's JobManager
-   recovers a journal that the other wrote.
+   recovers a journal that the other wrote. A second pair of servers
+   carries an image-to-video service over a stub SVD pipeline: POST
+   /img2vid (the client's PNG resized as Pillow's BILINEAR, down and up,
+   before the pipeline sees it), /healthz with the img2vid counters, an
+   img2vid job, and a bad image.
 2. The slice: POST /generate on the port's server over the tiny port
    pipeline (fp32, 8 frames at 64x64, 2 DDIM steps, CFG 7.5) against
    vdx's pipeline program on the same weights (carried over by vdx's
@@ -219,6 +223,63 @@ def _protocol_run(mod, clip):
     return out
 
 
+class _StubSVD:
+    """SVD's call signature; frames from the image it was given (uint8
+    from the float [0, 1] input) and the seed, so the resize shows."""
+
+    device = torch.device("cpu")
+
+    def __init__(self, relay):
+        self.progress_callback = relay
+
+    def __call__(self, image, seed=0, output_type="np", num_frames=25,
+                 height=576, width=1024, num_inference_steps=25,
+                 decode_chunk=5, **_):
+        image = np.asarray(image)
+        assert image.shape == (height, width, 3) and image.dtype == np.float32
+        assert int(decode_chunk) > 0
+        for i in range(int(num_inference_steps)):
+            self.progress_callback(i, int(num_inference_steps))
+        base = np.round(image * 255.0).astype(np.uint8)
+        rng = np.random.default_rng(seed)
+        frames = np.stack([base // 2 + rng.integers(0, 128, base.shape,
+                                                    dtype=np.uint8)
+                           for _ in range(num_frames)])
+        return SimpleNamespace(frames=torch.from_numpy(frames[None]))
+
+
+def _img2vid_run(mod, image_b64):
+    """A server of package ``mod`` with an img2vid service over the stub
+    SVD pipeline; the script's (what, status, payload) in order."""
+    defaults = {"num_frames": 3, "num_inference_steps": 2, "height": 20,
+                "width": 28}
+    relay = mod.ProgressRelay()
+    svc = mod.GenerationService(_StubPipe(mod.ProgressRelay()), defaults)
+    # the port's services on one card share its lock through the constructor
+    lock = {"lock": svc.device_lock} if mod is TS else {}
+    srv = mod.GenerationServer(svc, port=0, img2vid_service=mod.Img2VidService(
+        _StubSVD(relay), defaults, **lock))
+    srv.start()
+    c, out = _Client(srv.port), []
+    try:
+        out.append(("img2vid", *c("POST", "/img2vid",
+                                  {"image": image_b64, "seed": 3})))
+        out.append(("img2vid up", *c("POST", "/img2vid", {
+            "image": image_b64, "seed": 4, "height": "52", "width": 70,
+            "num_frames": 2})))
+        out.append(("img2vid bad image", *c("POST", "/img2vid",
+                                            {"image": "bm90IGEgcG5n"})))
+        out.append(("img2vid healthz", *c("GET", "/healthz")))
+        code, sub = c("POST", "/jobs", {"image": image_b64, "seed": 9})
+        out.append(("img2vid job", code, sub))
+        out.append(("img2vid job done", *c.wait(sub["job_id"])))
+        out.append(("img2vid job result",
+                    *c("GET", f"/jobs/{sub['job_id']}/result")))
+    finally:
+        srv.stop()
+    return out
+
+
 class _Svc:
     """A service whose result names the prompt; counts its calls."""
 
@@ -294,6 +355,25 @@ def test_protocol_matches_vdx(tmp_path):
     assert byname["jobs done"]["progress"] == {"step": 4, "total": 4}
     assert "strength" in byname["jobs error"]["error"]
     assert _frames_of(byname["generate video"]).shape == (2, 16, 24, 3)
+    # the image-to-video route (SVD's service) on both packages
+    image = np.random.default_rng(1).integers(0, 256, (33, 47, 3), dtype=np.uint8)
+    image_b64 = base64.b64encode(_pil_png(image)).decode("ascii")
+    want, got = _img2vid_run(JS, image_b64), _img2vid_run(TS, image_b64)
+    assert [w[0] for w in want] == [g[0] for g in got]
+    for (what, wcode, wbody), (_, gcode, gbody) in zip(want, got):
+        assert wcode == gcode, (what, wcode, gcode, wbody, gbody)
+        if what == "img2vid bad image":  # each package's decoder's message
+            assert wcode == 500 and gbody["error"].startswith("ValueError")
+            continue
+        _same(wbody, gbody, what)
+    byname = {g[0]: g[2] for g in got}
+    assert _frames_of(byname["img2vid"]).shape == (3, 20, 28, 3)
+    assert _frames_of(byname["img2vid up"]).shape == (2, 52, 70, 3)
+    assert byname["img2vid healthz"]["img2vid"]["requests_served"] == 2
+    assert byname["img2vid job done"]["progress"] == {"step": 2, "total": 2}
+    with pytest.raises(ValueError, match="device_lock"):
+        TS.GenerationServer(TS.GenerationService(_StubPipe(None)), port=0,
+                            img2vid_service=TS.Img2VidService(_StubSVD(None)))
     _check_journal_crossing(tmp_path)
 
 

@@ -27,8 +27,10 @@ what the new packages import.
    the frames of a direct port call and its GIF; serve builds a batching
    service exactly when --batch-window-ms > 0; train and convert return
    2. lib() builds and loads once under eight concurrent first calls.
-   Importing vdx_torch.serving, .tracing, .utils and .cli loads no jax,
-   flax, vdx, Pillow or pandas; vdx_torch.analysis loads pandas only.
+   Importing vdx_torch.serving, .tracing, .utils, .cli, the pipelines
+   (the family base, ModelScope, SVD), their new models and the
+   experiment CLIs loads no jax, flax, vdx, Pillow or pandas;
+   vdx_torch.analysis and the analysis CLIs (07, 08) load pandas only.
 """
 
 import io
@@ -357,3 +359,18 @@ def test_cli_loader_lock_and_imports(tmp_path, capsys, monkeypatch):
     assert _loaded(["vdx_torch.serving", "vdx_torch.tracing", "vdx_torch.utils",
                     "vdx_torch.cli"]) == []
     assert _loaded(["vdx_torch.analysis"]) == ["pandas"]
+    # the family base, ModelScope and SVD, and the experiment CLIs (07 and
+    # 08 are the pandas analyses)
+    assert _loaded(["vdx_torch.pipelines", "vdx_torch.pipelines.svd",
+                    "vdx_torch.pipelines.text_to_video_ms",
+                    "vdx_torch.models.unet3d", "vdx_torch.models.svd_unet",
+                    "vdx_torch.models.clip_vision", "vdx_torch.ops.resize",
+                    "vdx_torch.experiments.experiments_common",
+                    "vdx_torch.experiments.exp01_baseline_generation",
+                    "vdx_torch.experiments.exp02_architecture_inspection",
+                    "vdx_torch.experiments.exp03_trace_forward_pass",
+                    "vdx_torch.experiments.exp05_grid_search_ablation",
+                    "vdx_torch.experiments.exp06_measure_grid_search"]) == []
+    assert _loaded(["vdx_torch.experiments.exp07_analyze_grid_search",
+                    "vdx_torch.experiments.exp08_analyze_comprehensive"]) \
+        == ["pandas"]

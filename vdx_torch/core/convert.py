@@ -5,10 +5,15 @@ torch-native shapes, so vdx's conversion rules (vdx/core/convert.py) name
 the bridge. This module keeps its own copy of the rule tables it needs —
 UNetMotion, the AutoencoderKL and the CLIP text tower — and runs
 them backwards: :func:`params_from_jax` turns a flattened vdx parameter
-tree (numpy leaves) into a state_dict for the port's module.
+tree (numpy leaves) into a state_dict for the port's module. The
+families: UNetMotion, UNet3D (ModelScope) and UNetSpatioTemporal (SVD)
+denoisers, the AutoencoderKL, SVD's temporal decoder, and the CLIP text
+and vision towers.
 
 Layout transforms (vdx <- torch):
   * Conv:   torch OIHW     -> flax HWIO   (``t_conv``)
+  * Conv3d: torch OITHW    -> flax THWIO  (``t_conv3d``: the (3, 1, 1)
+    frame convs)
   * Dense:  torch [out,in] -> flax [in,out] (``t_dense``)
   * Norms and embeddings: identical (``t_id``)
 """
@@ -35,9 +40,14 @@ def t_id(w):
     return np.asarray(w)
 
 
+def t_conv3d(w):  # torch OITHW -> flax THWIO
+    return np.transpose(np.asarray(w), (2, 3, 4, 1, 0))
+
+
 # each rule's transform -> its inverse (vdx layout -> torch layout)
 _INVERSE = {
     t_conv: lambda w: np.transpose(np.asarray(w), (3, 2, 0, 1)),
+    t_conv3d: lambda w: np.transpose(np.asarray(w), (4, 3, 0, 1, 2)),
     t_dense: lambda w: np.transpose(np.asarray(w), (1, 0)),
     t_id: np.asarray,
 }
@@ -296,11 +306,246 @@ def clip_text_rules(config) -> Rules:
 
 
 # ----------------------------------------------------------------------
+# ModelScope UNet3D (diffusers' UNet3DConditionModel)
+# ----------------------------------------------------------------------
+
+
+def _temporal_conv_rules(prefix: str, hf_prefix: str) -> Rules:
+    """TemporalConvLayer: conv{1..4} = (GroupNorm, SiLU, Conv3d)."""
+    rules = {}
+    for i in range(4):
+        rules[f"{prefix}/norm{i}/scale"] = (f"{hf_prefix}.conv{i + 1}.0.weight", t_id)
+        rules[f"{prefix}/norm{i}/bias"] = (f"{hf_prefix}.conv{i + 1}.0.bias", t_id)
+        rules[f"{prefix}/conv{i}/kernel"] = (f"{hf_prefix}.conv{i + 1}.2.weight", t_conv3d)
+        rules[f"{prefix}/conv{i}/bias"] = (f"{hf_prefix}.conv{i + 1}.2.bias", t_id)
+    return rules
+
+
+def unet3d_rules(config) -> Rules:
+    """vdx UNet3D path -> diffusers UNet3DConditionModel key: per layer
+    resnet, temp_conv, attention, temp_attention, plus transformer_in."""
+    rules: Rules = {
+        "conv_in/kernel": ("conv_in.weight", t_conv),
+        "conv_in/bias": ("conv_in.bias", t_id),
+        "time_embedding/linear_1/kernel": ("time_embedding.linear_1.weight", t_dense),
+        "time_embedding/linear_1/bias": ("time_embedding.linear_1.bias", t_id),
+        "time_embedding/linear_2/kernel": ("time_embedding.linear_2.weight", t_dense),
+        "time_embedding/linear_2/bias": ("time_embedding.linear_2.bias", t_id),
+        "conv_norm_out/scale": ("conv_norm_out.weight", t_id),
+        "conv_norm_out/bias": ("conv_norm_out.bias", t_id),
+        "conv_out/kernel": ("conv_out.weight", t_conv),
+        "conv_out/bias": ("conv_out.bias", t_id),
+    }
+    rules.update(_motion_rules("transformer_in", "transformer_in"))
+    n = len(config.block_out_channels)
+    L = config.layers_per_block
+
+    def layer(ours, base, li, has_attn):
+        rules.update(_resnet_rules(f"{ours}_resnet", f"{base}.resnets.{li}"))
+        rules.update(_temporal_conv_rules(f"{ours}_tconv", f"{base}.temp_convs.{li}"))
+        if has_attn:
+            rules.update(_spatial_transformer_rules(f"{ours}_attn",
+                                                    f"{base}.attentions.{li}"))
+            rules.update(_motion_rules(f"{ours}_tattn",
+                                       f"{base}.temp_attentions.{li}"))
+
+    for bi in range(n):
+        for li in range(L):
+            layer(f"down_{bi}_{li}", f"down_blocks.{bi}", li,
+                  config.down_block_has_attn[bi])
+        if bi < n - 1:
+            rules.update(_resample_rules(f"down_{bi}_downsample",
+                                         f"down_blocks.{bi}.downsamplers.0"))
+    layer("mid_0", "mid_block", 0, True)
+    rules.update(_resnet_rules("mid_resnet_1", "mid_block.resnets.1"))
+    rules.update(_temporal_conv_rules("mid_tconv_1", "mid_block.temp_convs.1"))
+    for bi in range(n):
+        for li in range(L + 1):
+            layer(f"up_{bi}_{li}", f"up_blocks.{bi}", li,
+                  config.up_block_has_attn[bi])
+        if bi < n - 1:
+            rules.update(_resample_rules(f"up_{bi}_upsample",
+                                         f"up_blocks.{bi}.upsamplers.0"))
+    return rules
+
+
+# ----------------------------------------------------------------------
+# SVD UNetSpatioTemporal (diffusers' UNetSpatioTemporalConditionModel)
+# ----------------------------------------------------------------------
+
+
+def _svd_res_rules(prefix: str, hf_prefix: str) -> Rules:
+    """SpatioTemporalResBlock: spatial resnet, temporal 3x1x1 resnet, mixer."""
+    rules = _resnet_rules(f"{prefix}/spatial", f"{hf_prefix}.spatial_res_block")
+    for ours, theirs, tr in [
+        ("tnorm1/scale", "temporal_res_block.norm1.weight", t_id),
+        ("tnorm1/bias", "temporal_res_block.norm1.bias", t_id),
+        ("tconv1/kernel", "temporal_res_block.conv1.weight", t_conv3d),
+        ("tconv1/bias", "temporal_res_block.conv1.bias", t_id),
+        ("ttime_emb_proj/kernel", "temporal_res_block.time_emb_proj.weight", t_dense),
+        ("ttime_emb_proj/bias", "temporal_res_block.time_emb_proj.bias", t_id),
+        ("tnorm2/scale", "temporal_res_block.norm2.weight", t_id),
+        ("tnorm2/bias", "temporal_res_block.norm2.bias", t_id),
+        ("tconv2/kernel", "temporal_res_block.conv2.weight", t_conv3d),
+        ("tconv2/bias", "temporal_res_block.conv2.bias", t_id),
+        ("mix/mix_factor", "time_mixer.mix_factor", t_id),
+    ]:
+        rules[f"{prefix}/{ours}"] = (f"{hf_prefix}.{theirs}", tr)
+    return rules
+
+
+def _svd_attn_rules(prefix: str, hf_prefix: str) -> Rules:
+    """TransformerSpatioTemporal: the spatial and temporal block pair."""
+    rules = {
+        f"{prefix}/norm/scale": (f"{hf_prefix}.norm.weight", t_id),
+        f"{prefix}/norm/bias": (f"{hf_prefix}.norm.bias", t_id),
+        f"{prefix}/proj_in/kernel": (f"{hf_prefix}.proj_in.weight", t_dense),
+        f"{prefix}/proj_in/bias": (f"{hf_prefix}.proj_in.bias", t_id),
+        f"{prefix}/proj_out/kernel": (f"{hf_prefix}.proj_out.weight", t_dense),
+        f"{prefix}/proj_out/bias": (f"{hf_prefix}.proj_out.bias", t_id),
+        f"{prefix}/mix/mix_factor": (f"{hf_prefix}.time_mixer.mix_factor", t_id),
+    }
+    rules.update(_transformer_block_rules(
+        f"{prefix}/spatial_block", f"{hf_prefix}.transformer_blocks.0"))
+    rules.update(_transformer_block_rules(
+        f"{prefix}/temporal_block", f"{hf_prefix}.temporal_transformer_blocks.0"))
+    return rules
+
+
+def svd_unet_rules(config) -> Rules:
+    """vdx UNetSpatioTemporal path -> diffusers SVD UNet key."""
+    rules: Rules = {
+        "conv_in/kernel": ("conv_in.weight", t_conv),
+        "conv_in/bias": ("conv_in.bias", t_id),
+        "conv_norm_out/scale": ("conv_norm_out.weight", t_id),
+        "conv_norm_out/bias": ("conv_norm_out.bias", t_id),
+        "conv_out/kernel": ("conv_out.weight", t_conv),
+        "conv_out/bias": ("conv_out.bias", t_id),
+    }
+    for emb in ("time_embedding", "add_embedding"):
+        for i in (1, 2):
+            rules[f"{emb}/linear_{i}/kernel"] = (f"{emb}.linear_{i}.weight", t_dense)
+            rules[f"{emb}/linear_{i}/bias"] = (f"{emb}.linear_{i}.bias", t_id)
+    n = len(config.block_out_channels)
+    L = config.layers_per_block
+    for bi in range(n):
+        for li in range(L):
+            rules.update(_svd_res_rules(f"down_{bi}_{li}_res",
+                                        f"down_blocks.{bi}.resnets.{li}"))
+            if config.down_block_has_attn[bi]:
+                rules.update(_svd_attn_rules(f"down_{bi}_{li}_attn",
+                                             f"down_blocks.{bi}.attentions.{li}"))
+        if bi < n - 1:
+            rules.update(_resample_rules(f"down_{bi}_downsample",
+                                         f"down_blocks.{bi}.downsamplers.0"))
+    rules.update(_svd_res_rules("mid_0_res", "mid_block.resnets.0"))
+    rules.update(_svd_attn_rules("mid_0_attn", "mid_block.attentions.0"))
+    rules.update(_svd_res_rules("mid_res_1", "mid_block.resnets.1"))
+    for bi in range(n):
+        for li in range(L + 1):
+            rules.update(_svd_res_rules(f"up_{bi}_{li}_res",
+                                        f"up_blocks.{bi}.resnets.{li}"))
+            if config.up_block_has_attn[bi]:
+                rules.update(_svd_attn_rules(f"up_{bi}_{li}_attn",
+                                             f"up_blocks.{bi}.attentions.{li}"))
+        if bi < n - 1:
+            rules.update(_resample_rules(f"up_{bi}_upsample",
+                                         f"up_blocks.{bi}.upsamplers.0"))
+    return rules
+
+
+# ----------------------------------------------------------------------
+# SVD temporal decoder (diffusers' AutoencoderKLTemporalDecoder)
+# ----------------------------------------------------------------------
+
+
+def _tdec_res_rules(prefix: str, hf_prefix: str) -> Rules:
+    """_DecoderSTResBlock: spatial resnet (no temb), temporal resnet, mixer."""
+    rules = _vae_resnet_rules(f"{prefix}/spatial", f"{hf_prefix}.spatial_res_block")
+    for ours, theirs, tr in [
+        ("tnorm1/scale", "temporal_res_block.norm1.weight", t_id),
+        ("tnorm1/bias", "temporal_res_block.norm1.bias", t_id),
+        ("tconv1/kernel", "temporal_res_block.conv1.weight", t_conv3d),
+        ("tconv1/bias", "temporal_res_block.conv1.bias", t_id),
+        ("tnorm2/scale", "temporal_res_block.norm2.weight", t_id),
+        ("tnorm2/bias", "temporal_res_block.norm2.bias", t_id),
+        ("tconv2/kernel", "temporal_res_block.conv2.weight", t_conv3d),
+        ("tconv2/bias", "temporal_res_block.conv2.bias", t_id),
+        ("mix_factor", "time_mixer.mix_factor", t_id),
+    ]:
+        rules[f"{prefix}/{ours}"] = (f"{hf_prefix}.{theirs}", tr)
+    return rules
+
+
+def temporal_decoder_rules(config) -> Rules:
+    """vdx TemporalDecoder path -> diffusers temporal-decoder key."""
+    rules: Rules = {
+        "conv_in/kernel": ("decoder.conv_in.weight", t_conv),
+        "conv_in/bias": ("decoder.conv_in.bias", t_id),
+        "conv_norm_out/scale": ("decoder.conv_norm_out.weight", t_id),
+        "conv_norm_out/bias": ("decoder.conv_norm_out.bias", t_id),
+        "conv_out/kernel": ("decoder.conv_out.weight", t_conv),
+        "conv_out/bias": ("decoder.conv_out.bias", t_id),
+        "time_conv_out/kernel": ("decoder.time_conv_out.weight", t_conv3d),
+        "time_conv_out/bias": ("decoder.time_conv_out.bias", t_id),
+    }
+    rules.update(_tdec_res_rules("mid_resnet_0", "decoder.mid_block.resnets.0"))
+    rules.update(_tdec_res_rules("mid_resnet_1", "decoder.mid_block.resnets.1"))
+    rules.update(_vae_attn_rules("mid_attn", "decoder.mid_block.attentions.0"))
+    n = len(config.block_out_channels)
+    for bi in range(n):
+        for li in range(config.layers_per_block + 1):
+            rules.update(_tdec_res_rules(f"up_{bi}_{li}",
+                                         f"decoder.up_blocks.{bi}.resnets.{li}"))
+        if bi < n - 1:
+            rules.update(_resample_rules(f"up_{bi}_upsample",
+                                         f"decoder.up_blocks.{bi}.upsamplers.0"))
+    return rules
+
+
+# ----------------------------------------------------------------------
+# CLIP vision tower (transformers' CLIPVisionModelWithProjection)
+# ----------------------------------------------------------------------
+
+
+def clip_vision_rules(config) -> Rules:
+    V = "vision_model"
+    rules: Rules = {
+        "patch_embed/kernel": (f"{V}.embeddings.patch_embedding.weight", t_conv),
+        "class_embedding": (f"{V}.embeddings.class_embedding", t_id),
+        "position_embedding": (f"{V}.embeddings.position_embedding.weight", t_id),
+        # transformers' historical key spelling is "pre_layrnorm"
+        "pre_ln/scale": (f"{V}.pre_layrnorm.weight", t_id),
+        "pre_ln/bias": (f"{V}.pre_layrnorm.bias", t_id),
+        "post_ln/scale": (f"{V}.post_layernorm.weight", t_id),
+        "post_ln/bias": (f"{V}.post_layernorm.bias", t_id),
+        "visual_projection/kernel": ("visual_projection.weight", t_dense),
+    }
+    for i in range(config.num_layers):
+        lp, hp = f"layers_{i}", f"{V}.encoder.layers.{i}"
+        for ours, theirs in (("ln1", "layer_norm1"), ("ln2", "layer_norm2")):
+            rules[f"{lp}/{ours}/scale"] = (f"{hp}.{theirs}.weight", t_id)
+            rules[f"{lp}/{ours}/bias"] = (f"{hp}.{theirs}.bias", t_id)
+        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            rules[f"{lp}/{proj}/kernel"] = (f"{hp}.self_attn.{proj}.weight", t_dense)
+            rules[f"{lp}/{proj}/bias"] = (f"{hp}.self_attn.{proj}.bias", t_id)
+        for fc in ("fc1", "fc2"):
+            rules[f"{lp}/{fc}/kernel"] = (f"{hp}.mlp.{fc}.weight", t_dense)
+            rules[f"{lp}/{fc}/bias"] = (f"{hp}.mlp.{fc}.bias", t_id)
+    return rules
+
+
+# ----------------------------------------------------------------------
 # application
 # ----------------------------------------------------------------------
 
-_COMPONENT_RULES = {"unet": unet_motion_rules, "vae": vae_rules,
-                    "text": clip_text_rules}
+_COMPONENT_RULES = {"vae": vae_rules, "text": clip_text_rules,
+                    "tdec": temporal_decoder_rules, "vision": clip_vision_rules}
+# the "unet" component's rules by its config's class (vdx's and the port's
+# config classes share their names)
+_DENOISER_RULES = {"UNetMotionConfig": unet_motion_rules,
+                   "UNet3DConfig": unet3d_rules,
+                   "SVDUNetConfig": svd_unet_rules}
 
 
 def flatten_params(params: Mapping, prefix: str = "") -> Dict[str, object]:
@@ -337,6 +582,10 @@ def state_from_rules(flat_params: Mapping[str, np.ndarray],
 
 def params_from_jax(flat_params: Mapping[str, np.ndarray], component: str,
                     config) -> Dict[str, torch.Tensor]:
-    """Flattened vdx parameters of one component ("unet", "vae", "text")
+    """Flattened vdx parameters of one component ("unet": UNetMotion,
+    UNet3D or UNetSpatioTemporal by ``config``'s class; "vae", "text",
+    "tdec" for SVD's temporal decoder, "vision" for the CLIP vision tower)
     -> the port module's state_dict (fp32 torch tensors, diffusers names)."""
-    return state_from_rules(flat_params, _COMPONENT_RULES[component](config))
+    rules = (_DENOISER_RULES[type(config).__name__] if component == "unet"
+             else _COMPONENT_RULES[component])
+    return state_from_rules(flat_params, rules(config))

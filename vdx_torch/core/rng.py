@@ -53,9 +53,14 @@ _ERFINV_LARGE = (-0.000200214257, 0.000100950558, 0.00134934322,
 _LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
 
 
-def prng_key(seed: int) -> tuple:
+class PRNGKey(tuple):
+    """A key's two 32-bit words (a tuple), marked as a key so that an API
+    taking seeds can tell it from a pair of seeds."""
+
+
+def prng_key(seed: int) -> PRNGKey:
     """``jax.random.PRNGKey(seed)``'s two words, as vdx builds it."""
-    return (0, int(seed) & _M32)
+    return PRNGKey((0, int(seed) & _M32))
 
 
 def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
@@ -83,7 +88,7 @@ def split(key: tuple, num: int = 2) -> list:
     threefry2x32(key, (0, i)), computed on the host -> ``num`` keys."""
     idx = torch.arange(num, dtype=torch.int64)
     b1, b2 = threefry2x32(key, torch.zeros_like(idx), idx)
-    return [(int(a), int(b)) for a, b in zip(b1.tolist(), b2.tolist())]
+    return [PRNGKey((int(a), int(b))) for a, b in zip(b1.tolist(), b2.tolist())]
 
 
 def key_bits(key: tuple, shape: Sequence[int],

@@ -159,8 +159,10 @@ def run_grid_search(
     log=print,
     step_progress: bool = False,
     overlap_io: bool = True,
+    plan: Optional[List[ExperimentConfig]] = None,
 ) -> List[ExperimentConfig]:
-    """Run the (possibly filtered) grid.
+    """Run the (possibly filtered) grid, or ``plan`` when given (a list
+    of configs, e.g. the grid shrunk to smoke-test size).
 
     ``overlap_io`` (default) runs the study one experiment deep: each
     experiment is generated with ``output_type="device"``, and the
@@ -170,7 +172,7 @@ def run_grid_search(
     next run. ``step_progress`` logs each denoising step."""
     output_dir = Path(output_dir)
     output_dir.mkdir(parents=True, exist_ok=True)
-    configs = plan_grid_search(phase, video_filter)
+    configs = plan if plan is not None else plan_grid_search(phase, video_filter)
     if step_progress and getattr(pipe, "progress_callback", None) is None:
         pipe.progress_callback = lambda i, n: log(f"    step {i + 1}/{n}")
     if not overlap_io:

@@ -4,6 +4,11 @@ ResnetBlock2D: GN(32, eps)-SiLU-conv3x3 -> +time_emb(SiLU-Linear) ->
 GN-SiLU-conv3x3 -> +skip (1x1 conv when channels change). Parameter
 names follow diffusers (norm1, conv1, time_emb_proj, norm2, conv2,
 conv_shortcut).
+
+The frame-spanning pieces that the SVD UNet, ModelScope's UNet3D and the
+temporal VAE decoder share: ``frame_groups``, ``TemporalResBlock`` (the
+(3, 1, 1) resblock over [B, F, H, W, C]) and ``AlphaBlender`` (the
+learned sigmoid blend of a spatial and a temporal branch).
 """
 
 from __future__ import annotations
@@ -15,7 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vdx_torch.core.dtypes import DEFAULT_POLICY, Policy
-from vdx_torch.nn.layers import Conv2d, Dense
+from vdx_torch.nn.layers import Conv2d, Dense, FrameConv
 from vdx_torch.ops.groupnorm import group_norm, group_norm_silu
 
 
@@ -88,3 +93,52 @@ class Upsample2D(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
         return self.conv(x)
+
+
+def frame_groups(channels: int) -> int:
+    """GroupNorm groups of the frame-spanning norms: 32 where they divide
+    the channels, else min(C, 8) (vdx's TemporalConv and temporal
+    resblocks)."""
+    return 32 if channels % 32 == 0 else min(channels, 8)
+
+
+class AlphaBlender(nn.Module):
+    """Learned sigmoid blend of two branches, in fp32, cast to the first
+    branch's dtype: alpha * a + (1 - alpha) * b, alpha = sigmoid(mix).
+    ``mix_factor`` is fp32 whatever the policy (vdx's param)."""
+
+    def __init__(self):
+        super().__init__()
+        self.mix_factor = nn.Parameter(torch.empty(1, dtype=torch.float32))
+
+    def forward(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        alpha = torch.sigmoid(self.mix_factor.float())[0]
+        return (alpha * a.float() + (1.0 - alpha) * b.float()).to(a.dtype)
+
+
+class TemporalResBlock(nn.Module):
+    """The (3, 1, 1) resblock over [B, F, H, W, C]: GN-SiLU, frame conv,
+    a per-frame time-embedding bias (when ``temb_channels``), GN-SiLU,
+    frame conv. GN eps 1e-5 over frames and space."""
+
+    def __init__(self, channels: int, temb_channels: Optional[int],
+                 policy: Policy = DEFAULT_POLICY):
+        super().__init__()
+        g = frame_groups(channels)
+        self.policy = policy
+        self.norm1 = GroupNormModule(channels, g, 1e-5, True, policy)
+        self.conv1 = FrameConv(channels, channels, policy)
+        self.time_emb_proj = (None if temb_channels is None
+                              else Dense(temb_channels, channels, policy=policy))
+        self.norm2 = GroupNormModule(channels, g, 1e-5, True, policy)
+        self.conv2 = FrameConv(channels, channels, policy)
+
+    def forward(self, h: torch.Tensor,
+                temb: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """h [B, F, H, W, C], temb [B*F, D] -> the branch (no residual)."""
+        t = self.conv1(self.norm1(h))
+        if self.time_emb_proj is not None and temb is not None:
+            te = F.silu(temb.float()).to(self.policy.compute_dtype)
+            B, F_ = h.shape[:2]
+            t = t + self.time_emb_proj(te).reshape(B, F_, 1, 1, -1)
+        return self.conv2(self.norm2(t))

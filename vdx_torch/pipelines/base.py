@@ -1,5 +1,5 @@
-"""AnimateDiff text-to-video and video2video pipeline (port of
-vdx/pipelines/base.py).
+"""The family base and the AnimateDiff text-to-video and video2video
+pipeline (port of vdx/pipelines/base.py).
 
     pipe(prompt, negative_prompt=..., num_frames=16, guidance_scale=7.5,
          num_inference_steps=25, height=512, width=512, seed=42)
@@ -8,6 +8,16 @@ vdx/pipelines/base.py).
          output_type="device")                   # a batch of videos
     pipe(prompt, video=clip, strength=0.6)       # video2video (SDEdit)
 
+:class:`VideoDiffusionPipeline` is vdx's family base: the request loop
+around a pluggable denoiser, through vdx's hooks (``denoiser_cls``,
+``n_denoiser_cond``, ``guidance_always``, ``latent_channels``,
+``_prepare_cond``, ``_decode_raw``, ``_denoiser_rules``,
+``_conversion_rules``) and the port's ``default_scheduler`` and
+``_component_factories`` (the components beside the denoiser).
+:class:`AnimateDiffPipeline` (UNetMotion), ``TextToVideoMSPipeline``
+(UNet3D, pipelines/text_to_video_ms.py) and ``SVDImg2VidPipeline``
+(pipelines/svd.py) subclass it.
+
 Text encode -> initial noise (vdx's ``jax.random.normal(PRNGKey(seed))``,
 computed by vdx_torch.core.rng on the pipeline's device; one draw per
 video of a batch, so video b equals the single call with seed b) ->
@@ -15,12 +25,14 @@ CFG-batched denoise loop (cond and uncond of every video in ONE UNet call
 per step) -> frame-chunked VAE decode -> uint8. The loop is a Python loop
 of eager steps (vdx's ``lax.scan``); fp32 guidance and scheduler math
 around the compute-dtype UNet. Every sampler of vdx_torch.schedulers runs
-through the one loop: ``scale_model_input`` -> UNet at
-``tables.timesteps[i]`` -> CFG combine -> ``step``, or ``step_multistep``
-with the sampler's state in the loop's carry. Under an fp32 policy on CUDA
-every matmul and convolution runs in fp32, not TF32: the text encoder,
-UNet and VAE forwards each turn TF32 off while they run
-(core.dtypes.exact_fp32); the glue between them is elementwise.
+through the one loop: ``scale_model_input`` -> (the family's ``concat``
+conditioning appended on the channels) -> UNet at ``tables.timesteps[i]``
+-> CFG combine (a scalar, a per-step schedule or, as SVD's, a per-frame
+[1, F, 1, 1, 1] scale) -> ``step``, or ``step_multistep`` with the
+sampler's state in the loop's carry. Under an fp32 policy on CUDA every
+matmul and convolution runs in fp32, not TF32: each component's forward
+turns TF32 off while it runs (core.dtypes.exact_fp32); the glue between
+them is elementwise.
 
 vdx's request surface: prompt batches with per-video seeds, per-step
 guidance schedules (indexed on the device), ``guidance_rescale``,
@@ -184,10 +196,19 @@ class _Request:
     t_start: int = 0
     #: the denoiser: the UNet, or its context-windowed wrapper
     unet: Optional[Callable] = None
+    #: the denoiser's conditioning after (sample, t) when it is not the
+    #: text ``context`` alone (``_prepare_cond``'s ``den_args``)
+    den_args: Optional[tuple] = None
+    #: [2B or B, F, h, w, Cc], appended to the model input's channels
+    #: after ``scale_model_input`` (``_prepare_cond``'s ``concat``)
+    concat: Optional[torch.Tensor] = None
 
     def scale_at(self, i: int):
         g = self.guidance_scale
         return g[i] if torch.is_tensor(g) and g.dim() == 1 else g
+
+    def cond_args(self) -> tuple:
+        return (self.context,) if self.den_args is None else self.den_args
 
 
 @dataclasses.dataclass
@@ -206,17 +227,39 @@ class _Carry:
     pab_cache: Optional[dict] = None
 
 
-class AnimateDiffPipeline:
-    """SD-1.5 + motion modules."""
+def _channels_last_(module: torch.nn.Module) -> None:
+    """Conv weights in the activations' channels-last layout (cuDNN):
+    2D kernels channels_last, the frame convs' 3D kernels
+    channels_last_3d."""
+    with torch.no_grad():
+        for p in module.parameters():
+            if p.dim() == 4:
+                p.data = p.data.contiguous(memory_format=torch.channels_last)
+            elif p.dim() == 5:
+                p.data = p.data.contiguous(memory_format=torch.channels_last_3d)
+
+
+class VideoDiffusionPipeline:
+    """Base: the request loop around a pluggable denoiser (vdx's
+    ``VideoDiffusionPipeline``). A family sets ``denoiser_cls`` and
+    overrides the hooks below; the base is SD-1.5's text path."""
+
+    denoiser_cls = UNetMotion
+    denoiser_config_cls = UNetMotionConfig
+    #: conditioning tensors the denoiser takes after (sample, t)
+    n_denoiser_cond = 1
+    #: build the CFG pair whatever the guidance scale (SVD's per-frame scale)
+    guidance_always = False
+    #: the sampler when the constructor names none
+    default_scheduler = "euler"
 
     def __init__(
         self,
-        unet_config: Optional[UNetMotionConfig] = None,
+        unet_config=None,
         vae_config: VAEConfig = VAEConfig(),
-        text_config: CLIPTextConfig = CLIPTextConfig(),
-        tokenizer=None,
+        *,
         policy: Policy = DEFAULT_POLICY,
-        scheduler: str = "euler",
+        scheduler: Optional[str] = None,
         attn_impl: str = "auto",
         pab: Optional[PABConfig] = None,
         skip: Optional[SkipConfig] = None,
@@ -230,7 +273,13 @@ class AnimateDiffPipeline:
         sampler_configs=None,
         freeu=None,
         device: Union[str, torch.device] = "cuda",
+        **family,
     ):
+        """Keywords after the two configs. ``family``: those of the
+        family's other components, as :meth:`_component_factories` takes
+        them (the text families' ``text_config`` and ``tokenizer``, SVD's
+        ``vision_config``)."""
+        scheduler = scheduler or self.default_scheduler
         if pab is not None and skip is not None:
             raise ValueError("pab and skip are both turbo modes with their own "
                              "denoise programs — pick one")
@@ -261,31 +310,82 @@ class AnimateDiffPipeline:
         # sampler name -> its config dataclass (None: the module defaults)
         self.sampler_configs = dict(sampler_configs or {})
         self._warned_sampler_cfg = set()
-        self.tokenizer = tokenizer or load_tokenizer()
-        # Built on the meta device and materialised uninitialised on the
-        # target: weights come from random_init_ or a state_dict.
-        with torch.device("meta"):
-            unet = UNetMotion(unet_config or UNetMotionConfig(), policy,
-                              attn_impl=attn_impl, freeu=freeu)
-            vae = AutoencoderKL(vae_config, policy)
-            text = CLIPTextModel(text_config, policy)
-        self.unet = unet.to_empty(device=self.device).eval()
-        self.vae = vae.to_empty(device=self.device).eval()
-        self.text_encoder = text.to_empty(device=self.device).eval()
-        if self.device.type == "cuda":
-            # conv weights in the activations' channels-last layout (cuDNN)
-            self.unet.to(memory_format=torch.channels_last)
-            self.vae.to(memory_format=torch.channels_last)
         self._tables = {}
         #: component -> {"adapter", "pristine" tensors, "scale"}
         self._lora_active = {}
         self._has_params = False
+        unet_config = unet_config or self.denoiser_config_cls()
+        self._build(
+            unet=lambda: self.denoiser_cls(unet_config, policy,
+                                           attn_impl=attn_impl, freeu=freeu),
+            **self._component_factories(vae_config, policy, **family))
+
+    def _build(self, **factories) -> None:
+        """Each component built on the meta device and materialised
+        uninitialised on the pipeline's device as an attribute of that
+        name (weights come from random_init_ or a state_dict); on CUDA its
+        conv weights go channels-last."""
+        for name, make in factories.items():
+            with torch.device("meta"):
+                module = make()
+            module = module.to_empty(device=self.device).eval()
+            if self.device.type == "cuda":
+                _channels_last_(module)
+            setattr(self, name, module)
+
+    # ------------------------------------------------------------------
+    # family hooks (vdx's override points)
+    # ------------------------------------------------------------------
+    @property
+    def latent_channels(self) -> int:
+        """Channels of the DENOISED latent (fewer than the denoiser's
+        input when conditioning is concatenated on the channels)."""
+        return self.unet.config.in_channels
+
+    def _prepare_cond(self, key, cond, latent_shape) -> dict:
+        """The request's conditioning -> {"den_args": the denoiser's
+        tensors after (sample, t), "concat": None or a tensor appended to
+        the model input's channels after ``scale_model_input``, "key":
+        what :meth:`initial_noise` draws from (a seed, seeds, or a
+        ``rng.PRNGKey``)}. Text-to-video: ``cond`` is the encoded
+        context."""
+        del latent_shape
+        return {"den_args": (cond,), "concat": None, "key": key}
+
+    def _decode_raw(self, chunk: int, **opts) -> Callable:
+        """-> decode([B, F, h, w, C] latents) -> [B, F, H, W, 3] uint8,
+        ``chunk`` frames at a time. Families with other VAEs override."""
+        if opts:
+            raise TypeError(f"unknown decode options {sorted(opts)}")
+        vae = self.vae
+
+        def decode(latents):
+            B, F_ = latents.shape[:2]
+            z = latents.reshape(B * F_ // chunk, chunk, *latents.shape[2:])
+            out = [_to_uint8(vae.decode(z[n])) for n in range(z.shape[0])]
+            return torch.cat(out).reshape(B, F_, *out[0].shape[1:])
+
+        return decode
+
+    def _component_factories(self, vae_config: VAEConfig, policy: Policy,
+                             text_config: CLIPTextConfig = CLIPTextConfig(),
+                             tokenizer=None) -> dict:
+        """The components beside the denoiser: attribute name -> a function
+        that builds it. The text families: the SD VAE and the CLIP text
+        tower (and the tokenizer)."""
+        self.tokenizer = tokenizer or load_tokenizer()
+        return {"vae": lambda: AutoencoderKL(vae_config, policy),
+                "text_encoder": lambda: CLIPTextModel(text_config, policy)}
+
+    def _denoiser_rules(self):
+        """vdx parameter path -> (torch key, transform) of the denoiser."""
+        return convert.unet_motion_rules(self.unet.config)
 
     # ------------------------------------------------------------------
     # parameters
     # ------------------------------------------------------------------
     @classmethod
-    def with_random_params(cls, seed: int = 0, **kwargs) -> "AnimateDiffPipeline":
+    def with_random_params(cls, seed: int = 0, **kwargs) -> "VideoDiffusionPipeline":
         """Seeded random weights, generated on the pipeline's device."""
         pipe = cls(**kwargs)
         pipe.init_params(seed)
@@ -296,14 +396,14 @@ class AnimateDiffPipeline:
         :func:`random_init_`); returns the parameter count."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
         self._has_params = True
-        return sum(random_init_(m, gen)
-                   for m in (self.unet, self.vae, self.text_encoder))
+        return sum(random_init_(m, gen) for m in self._components().values())
 
     def _components(self) -> dict:
         return {"unet": self.unet, "vae": self.vae, "text": self.text_encoder}
 
     def load_state_dicts(self, state_dicts: dict) -> None:
-        """{"unet" | "vae" | "text": state_dict} with diffusers names."""
+        """{component: state_dict} with diffusers names (components as
+        :meth:`_components`: "unet", "vae", "text" for the text families)."""
         modules = self._components()
         for name, sd in state_dicts.items():
             modules[name].load_state_dict(sd, strict=True)
@@ -315,7 +415,7 @@ class AnimateDiffPipeline:
     def _conversion_rules(self) -> dict:
         """{component: (rules, allowed missing substrings)}: the port's
         copy of vdx's rule tables, which name every weight in both."""
-        return {"unet": (convert.unet_motion_rules(self.unet.config), ()),
+        return {"unet": (self._denoiser_rules(), ()),
                 "vae": (convert.vae_rules(self.vae.config), ()),
                 "text": (convert.clip_text_rules(self.text_encoder.config), ())}
 
@@ -499,30 +599,33 @@ class AnimateDiffPipeline:
             self._tables[key] = tables
         return self._tables[key]
 
-    def initial_noise(self, latent_shape, seed: Union[int, Sequence[int]]
-                      ) -> torch.Tensor:
+    def initial_noise(self, latent_shape, seed) -> torch.Tensor:
         """vdx's initial noise (vdx_torch.core.rng: the same threefry bits
-        on the CPU and on the card). For B = latent_shape[0] > 1, video b
-        draws from its own seed; a scalar seed serves every video. Under
-        ``context`` with FreeNoise and a clip past one window, the noise
-        is FreeNoise's (pipelines/context.py)."""
+        on the CPU and on the card). ``seed``: an int, a ``rng.PRNGKey``
+        (``_prepare_cond``'s key), or for B = latent_shape[0] > 1 one of
+        those a video (a scalar serves every video). Under ``context``
+        with FreeNoise and a clip past one window, the noise is
+        FreeNoise's (pipelines/context.py)."""
         B = latent_shape[0]
         if B == 1:
-            if isinstance(seed, (list, tuple)):
+            if isinstance(seed, (list, tuple)) and not isinstance(seed, rng.PRNGKey):
                 (seed,) = seed
-            seeds = [int(seed)]
+            seeds = [seed]
         else:
-            seeds = list(seed) if isinstance(seed, (list, tuple)) else [seed] * B
+            seeds = (list(seed) if isinstance(seed, (list, tuple))
+                     and not isinstance(seed, rng.PRNGKey) else [seed] * B)
             if len(seeds) != B:  # vdx's exception type (an assert in _seed_keys)
                 raise AssertionError(f"got {len(seeds)} seeds for {B} prompts")
-            seeds = [int(s) for s in seeds]
+        keys = [s if isinstance(s, rng.PRNGKey) else rng.prng_key(int(s))
+                for s in seeds]
         ctx = self.context
         if ctx is not None and ctx.freenoise and latent_shape[1] > ctx.frames:
             make = make_freenoise_maker(latent_shape, ctx.frames, self.device)
-            return make([rng.prng_key(s) for s in seeds])
+            return make(keys)
         if B == 1:
-            return rng.normal(seeds[0], latent_shape, self.device)
-        return rng.normal_batch(seeds, latent_shape[1:], self.device)
+            return rng.key_normal(keys[0], latent_shape, self.device)
+        return torch.stack([rng.key_normal(k, latent_shape[1:], self.device)
+                            for k in keys])
 
     def _eval(self, req: _Request, latents: torch.Tensor, i: int,
               carry: Optional[_Carry] = None) -> torch.Tensor:
@@ -534,15 +637,17 @@ class AnimateDiffPipeline:
         sampler = get_sampler(req.scheduler)
         model_in = torch.cat([latents, latents]) if req.guidance else latents
         model_in = sampler.scale_model_input(model_in, i, req.tables)
+        if req.concat is not None:
+            model_in = torch.cat([model_in, req.concat.to(model_in.dtype)], dim=-1)
         t_b = req.tables.timesteps[i].expand(model_in.shape[0])
         pab = self.pab is not None and carry is not None
         if pab:
             eps, carry.pab_cache = self.unet(
-                model_in, t_b, req.context,
+                model_in, t_b, *req.cond_args(),
                 pab_refresh=pab_refresh_flags(self.pab, i, req.num_steps),
                 pab_cache=carry.pab_cache)
         else:
-            eps = (req.unet or self.unet)(model_in, t_b, req.context)
+            eps = (req.unet or self.unet)(model_in, t_b, *req.cond_args())
         if req.guidance:
             u, c = eps.chunk(2)
             eps = cfg_combine(u, c, req.scale_at(i), self.guidance_rescale)
@@ -619,13 +724,10 @@ class AnimateDiffPipeline:
         return carry
 
     @torch.inference_mode()
-    def _decode(self, latents: torch.Tensor, chunk: int) -> torch.Tensor:
+    def _decode(self, latents: torch.Tensor, chunk: int, **opts) -> torch.Tensor:
         """[B, F, h, w, C] latents -> [B, F, H, W, 3] uint8, decoded
-        ``chunk`` frames at a time."""
-        B, F_ = latents.shape[:2]
-        z = latents.reshape(B * F_ // chunk, chunk, *latents.shape[2:])
-        out = [_to_uint8(self.vae.decode(z[n])) for n in range(z.shape[0])]
-        return torch.cat(out).reshape(B, F_, *out[0].shape[1:])
+        ``chunk`` frames at a time (the family's :meth:`_decode_raw`)."""
+        return self._decode_raw(chunk, **opts)(latents)
 
     @torch.inference_mode()
     def _encode(self, video: torch.Tensor, chunk: int) -> torch.Tensor:
@@ -686,17 +788,42 @@ class AnimateDiffPipeline:
             _, num_frames, height, width = video.shape[:4]
             # SDEdit truncation: at least one step for any strength > 0
             t_start = N - min(max(int(N * strength), 1), N)
-        if self.pab is not None and is_multistep(scheduler):
-            raise ValueError("PAB turbo mode supports ddim/euler/edm samplers")
         B = 1 if isinstance(prompt, str) else len(prompt)
         if video is not None and video.shape[0] != B:
             raise ValueError(f"video batch {video.shape[0]} != prompt batch {B}")
+        guidance = (self.guidance_always
+                    or float(np.max(np.asarray(guidance_scale, np.float32))) > 1.0)
+        context = self.encode_prompt(prompt, negative_prompt)  # [2B, 77, D]
+        if not guidance:
+            context = context[B:]
+        ds = self.vae.config.downscale
+        latent_shape = (B, num_frames, height // ds, width // ds,
+                        self.latent_channels)
+        return self._run_generate(
+            cond=context, guidance_scale=guidance_scale, guidance=guidance,
+            latent_shape=latent_shape, scheduler=scheduler,
+            num_inference_steps=N, seed=seed, decode_chunk=decode_chunk,
+            output_type=output_type, video=video, t_start=t_start,
+            dispatch_steps=dispatch_steps)
+
+    def _run_generate(self, *, cond, guidance_scale, guidance: bool,
+                      latent_shape, scheduler: str, num_inference_steps: int,
+                      seed, decode_chunk: int, decode_opts=None,
+                      output_type: str = "pil", video=None, t_start: int = 0,
+                      dispatch_steps: int = 0) -> PipelineOutput:
+        """The family-independent request path (vdx's ``_run_generate``):
+        the guidance array (a scalar, a per-step schedule or a per-frame
+        tensor), the tables, the family's conditioning and noise, the
+        denoise loop, the decode and the output."""
+        N = num_inference_steps
+        B, num_frames = latent_shape[:2]
+        if self.pab is not None and is_multistep(scheduler):
+            raise ValueError("PAB turbo mode supports ddim/euler/edm samplers")
         segmented = bool(dispatch_steps) and dispatch_steps < N
         if segmented and video is not None:
             raise ValueError("dispatch_steps does not compose with video2video")
 
         gs = np.asarray(guidance_scale, np.float32)
-        guidance = float(np.max(gs)) > 1.0
         use_var = (self.variable_steps > 0 and self.skip is None
                    and self.pab is None and video is None and not segmented
                    and N <= self.variable_steps)
@@ -710,25 +837,23 @@ class AnimateDiffPipeline:
                                  f"{gs.shape[0]} entries for {N} steps")
             if use_var:
                 gs = np.pad(gs, (0, self.variable_steps - N), mode="edge")
+        # rank 0: a Python float; rank 1: a per-step schedule indexed on the
+        # device; higher ranks (SVD's per-frame [1, F, 1, 1, 1]) broadcast
         scale = float(gs) if gs.ndim == 0 else torch.as_tensor(gs, device=self.device)
 
-        context = self.encode_prompt(prompt, negative_prompt)  # [2B, 77, D]
-        if not guidance:
-            context = context[B:]
-        ds = self.vae.config.downscale
-        latent_shape = (B, num_frames, height // ds, width // ds,
-                        self.unet.config.in_channels)
         chunk = max(1, min(decode_chunk, num_frames))
         while num_frames % chunk:
             chunk -= 1
+        prep = self._prepare_cond(seed, cond, latent_shape)
         unet = self.unet
         if self.context is not None and num_frames > self.context.frames:
             unet = make_windowed_apply(
                 self.unet, total_frames=num_frames,
-                out_channels=self.unet.config.in_channels, cfg=self.context)
-        req = _Request(context, guidance, scale, scheduler, tables,
-                       self._sampler_cfg(scheduler), N, t_start, unet)
-        noise = self.initial_noise(latent_shape, seed)
+                out_channels=self.latent_channels, cfg=self.context)
+        req = _Request(None, guidance, scale, scheduler, tables,
+                       self._sampler_cfg(scheduler), N, t_start, unet,
+                       den_args=prep["den_args"], concat=prep["concat"])
+        noise = self.initial_noise(latent_shape, prep["key"])
         if video is None:
             latents = noise * tables.init_noise_sigma
         else:
@@ -742,7 +867,7 @@ class AnimateDiffPipeline:
                    torch.tensor(carry.n_evals, dtype=torch.int32, device=self.device))
         if output_type == "latent":
             return PipelineOutput(frames=[], latents=latents, n_evals=n_evals)
-        frames = self._decode(latents, chunk)
+        frames = self._decode(latents, chunk, **(decode_opts or {}))
         if output_type == "device":
             return PipelineOutput(frames=frames, latents=latents, n_evals=n_evals)
         frames = frames.cpu().numpy()
@@ -754,3 +879,10 @@ class AnimateDiffPipeline:
         return PipelineOutput(
             frames=[[Image.fromarray(f) for f in frames[b]] for b in range(B)],
             latents=latents, n_evals=n_evals)
+
+
+class AnimateDiffPipeline(VideoDiffusionPipeline):
+    """SD-1.5 + motion modules (the reference's flagship pipeline)."""
+
+    denoiser_cls = UNetMotion
+    denoiser_config_cls = UNetMotionConfig

@@ -9,12 +9,14 @@
         -> {frames: [base64 PNG, ...], timings: {...}}
       POST /v2v {prompt, video: [base64 PNG, ...], strength?, ...}
         -> same payload (video2video; geometry derives from the clip)
-      GET /healthz -> {status, device, requests_served, avg_seconds}
+      POST /img2vid {image: base64 PNG, num_frames?, ...} -> same payload
+        (SVD; with an ``img2vid_service``, else 404 as vdx's server)
+      GET /healthz -> {status, device, requests_served, avg_seconds,
+                       img2vid?: {requests_served, avg_seconds}}
   * Async job API (a multi-second denoise should not hold an HTTP
     connection open):
-      POST /jobs {kind?: "t2v"|"v2v", ...request}
-        -> {job_id, status} (an image, kind "img2vid", is a 400 until
-        the SVD pipeline's service comes with ROADMAP item 11)
+      POST /jobs {kind?: "t2v"|"v2v"|"img2vid", ...request}
+        -> {job_id, status}
       GET /jobs/{id} -> {status: queued|running|done|error,
                          progress: {step, total}?, error?}
       GET /jobs/{id}/result -> the same payload the sync route returns
@@ -44,7 +46,8 @@ from typing import Optional
 
 import torch
 
-from vdx_torch.io.png import decode_pngs, encode_png
+from vdx_torch.io.png import decode_png, decode_pngs, encode_png
+from vdx_torch.ops.resize import resize_bilinear_u8
 
 
 class ProgressRelay:
@@ -72,7 +75,11 @@ def _png_b64(frames) -> list:
 
 
 class GenerationService:
-    def __init__(self, pipe, defaults: Optional[dict] = None):
+    """``lock``: the device lock, one request's work on the card at a time;
+    services that share a card share it (a new lock when None)."""
+
+    def __init__(self, pipe, defaults: Optional[dict] = None,
+                 lock: Optional[threading.Lock] = None):
         self.pipe = pipe
         self.defaults = {
             "num_frames": 16,
@@ -83,7 +90,7 @@ class GenerationService:
             "negative_prompt": "bad quality, blurry, distorted",
             **(defaults or {}),
         }
-        self._lock = threading.Lock()
+        self.device_lock = lock or threading.Lock()
         # the counters are updated outside the device lock, from handler
         # and worker threads
         self._stats_lock = threading.Lock()
@@ -116,7 +123,7 @@ class GenerationService:
                 kwargs.pop(k, None)
         seed = int(request.get("seed", 0))
         t0 = time.time()
-        with self._lock:  # one request's work on the card at a time
+        with self.device_lock:  # one request's work on the card at a time
             out = self.pipe(
                 prompt,
                 seed=seed,
@@ -147,13 +154,59 @@ class GenerationService:
         }
 
 
-class Img2VidService:
-    """Image-to-video serving for the SVD pipeline: not ported yet."""
+class Img2VidService(GenerationService):
+    """Image-to-video serving for the SVD pipeline (vdx's
+    ``Img2VidService``).
 
-    def __init__(self, pipe, defaults: Optional[dict] = None):
-        raise NotImplementedError(
-            "Img2VidService serves the SVD pipeline, which comes with "
-            "ROADMAP Queue 1 item 11 (SVD)")
+    POST body: {image: base64 PNG, num_frames?, num_inference_steps?,
+    height?, width?, seed?, decode_chunk?} -> the text-to-video payload.
+    The image is decoded host-side (vdx_torch.io.png), resized to the
+    requested geometry as Pillow's BILINEAR (vdx_torch.ops.resize), and
+    given to the pipeline as float32 [0, 1]. Beside a text-to-video
+    service on the same card, build it with that service's
+    ``device_lock``."""
+
+    def __init__(self, pipe, defaults: Optional[dict] = None,
+                 lock: Optional[threading.Lock] = None):
+        super().__init__(pipe, {
+            "num_frames": 25,
+            "num_inference_steps": 25,
+            "height": 576,
+            "width": 1024,
+            "decode_chunk": 5,
+            **(defaults or {}),
+        }, lock)
+        # text2video keys that do not apply to img2vid
+        for k in ("guidance_scale", "negative_prompt"):
+            self.defaults.pop(k, None)
+
+    def generate(self, request: dict) -> dict:
+        import numpy as np
+
+        raw = base64.b64decode(request["image"])
+        kwargs = {k: request.get(k, v) for k, v in self.defaults.items()}
+        # cast once so the resize geometry and the pipeline request agree
+        for k in ("width", "height", "num_frames", "num_inference_steps",
+                  "decode_chunk"):
+            if k in kwargs:
+                kwargs[k] = int(kwargs[k])
+        img = resize_bilinear_u8(decode_png(raw), kwargs["width"],
+                                 kwargs["height"])
+        image = img.astype(np.float32) / 255.0
+        seed = int(request.get("seed", 0))
+        t0 = time.time()
+        with self.device_lock:
+            out = self.pipe(image, seed=seed, output_type="device", **kwargs)
+        frames = out.frames[0].cpu().numpy()  # the readback outside the lock
+        dt = time.time() - t0
+        encoded = _png_b64(frames)
+        self._account(dt)
+        return {
+            "frames": encoded,
+            "num_frames": len(frames),
+            "timings": {"seconds": round(dt, 3)},
+            "seed": seed,
+        }
 
 
 class BatchingGenerationService(GenerationService):
@@ -260,7 +313,7 @@ class BatchingGenerationService(GenerationService):
         chunk = max(1, min(4, F))
         while F % chunk:
             chunk -= 1
-        with self._lock:
+        with self.device_lock:
             latents = batched.denoise_batch(pipe, configs, self.scheduler,
                                             context=context)
             # ONE chunked decode for the whole batch: latents [N, F, ...]
@@ -459,15 +512,25 @@ class JobManager:
 
 class GenerationServer:
     """HTTP front: ``service`` answers POST /generate and /v2v and runs
-    the jobs; ``journal_dir`` gives the job manager its journal. POST
-    /img2vid answers 404, as vdx's server without an image-to-video
-    service: that service comes with the SVD pipeline (ROADMAP item 11)."""
+    the jobs; the optional ``img2vid_service`` answers POST /img2vid (SVD;
+    404 without one, as vdx's server) and its jobs, under the same device
+    lock; ``journal_dir`` gives the job manager its journal."""
 
     def __init__(self, service: GenerationService, host: str = "127.0.0.1",
-                 port: int = 8080, journal_dir=None):
+                 port: int = 8080, journal_dir=None,
+                 img2vid_service: Optional[Img2VidService] = None):
         self.service = service
         svc = service
-        self.jobs = JobManager({"t2v": svc, "v2v": svc}, journal_dir=journal_dir)
+        i2v = img2vid_service
+        kinds = {"t2v": svc, "v2v": svc}
+        if i2v is not None:
+            # one request's work on the card at a time across both
+            if i2v.device_lock is not svc.device_lock:
+                raise ValueError("build the img2vid service with "
+                                 "lock=service.device_lock: both run on "
+                                 "one card")
+            kinds["img2vid"] = i2v
+        self.jobs = JobManager(kinds, journal_dir=journal_dir)
         jobs = self.jobs
 
         class Handler(BaseHTTPRequestHandler):
@@ -506,7 +569,12 @@ class GenerationServer:
                     else:
                         self._reply(404, {"error": "not found"})
                 elif self.path == "/healthz":
-                    self._reply(200, svc.health())
+                    h = svc.health()
+                    if i2v is not None:
+                        h["img2vid"] = {k: v for k, v in i2v.health().items()
+                                        if k in ("requests_served",
+                                                 "avg_seconds")}
+                    self._reply(200, h)
                 else:
                     self._reply(404, {"error": "not found"})
 
@@ -519,7 +587,11 @@ class GenerationServer:
                     except Exception as e:  # noqa: BLE001
                         self._reply(400, {"error": f"{type(e).__name__}: {e}"})
                     return
-                if self.path not in ("/generate", "/v2v"):
+                if self.path in ("/generate", "/v2v"):
+                    target = svc
+                elif self.path == "/img2vid" and i2v is not None:
+                    target = i2v
+                else:
                     self._reply(404, {"error": "not found"})
                     return
                 try:
@@ -532,7 +604,7 @@ class GenerationServer:
                                       "(list of base64 PNG frames)"},
                         )
                         return
-                    self._reply(200, svc.generate(request))
+                    self._reply(200, target.generate(request))
                 except Exception as e:  # noqa: BLE001 — error surface to client
                     self._reply(500, {"error": f"{type(e).__name__}: {e}"})
 
