@@ -162,6 +162,27 @@ Phases, one flushed line each with its seconds:
      one POST /img2vid through a GenerationServer with the port's
      Img2VidService, its frames within one uint8 level of the direct
      call's
+ 25. Latte: LattePipeline at full width (LatteConfig.xl(), the SD VAE, the
+     CLIP ViT-L text tower; bf16, seeded random weights, no all-zero
+     kernel, the adaLN gates and final_proj included), after phase 24's
+     pipeline is freed: the GN sites of a decode chunk ([gn] line), a
+     2-step warm-up, one DiT evaluation against the plain K1 (REL_L2_TOL;
+     K1 14 a call at [32, 1024, 16, 72], head dim 72 on the DP = 80
+     instance, no GroupNorm), the timed call: 16 frames 512x512, 50 DDIM
+     steps, CFG 7.5 (K1 700, K2/K3 by the plan in the decode; seconds a
+     video, frames/s, peak memory)
+ 26. CogVideoX: CogVideoXPipeline at full width (CogVideoXConfig.b2(),
+     T5Config.xxl(), CausalVAEConfig.cogvideox(); bf16,
+     offload_text_encoder=True), after phase 25's pipeline is freed: the GN
+     sites of the causal decode in spatial tiles of 40 ([gn] line), a
+     2-step warm-up, one DiT evaluation against the plain K1 (REL_L2_TOL;
+     K1 30 a call at [2, 17776, 30, 64], the plain version over one head
+     at a time), the timed call with the prompt cache cleared: 49 frames
+     480x720, 50 DDIM steps (v-prediction), CFG 6.0,
+     decode_spatial_tile=40 (K1 1500, K2/K3 by the plan in the decode),
+     its seconds split by CUDA events into the T5 encode with its host
+     round trip, the denoise loop and the decode, and the peaks of the
+     encode, the denoise loop and the decode
 Phase 3 also checks the wgmma + TMA pipeline at its edges (Sq and Skv off
 the tiles, Skv under one tile, q/k/v as views into one fused projection,
 rows whose every scaled logit is below -46; every form at each head-dim
@@ -290,7 +311,27 @@ SVD_CALL = dict(num_frames=25, height=576, width=1024, decode_chunk=5,
                 seed=1234, output_type="np")
 SVD_FPS = 7
 SVD_K1_PER_CALL = 15
-# pipeline keyword overrides by family ("ms", "svd"); a CPU rehearsal
+# phase 25: Latte (BASELINE.json configs[4]) as vdx's family bench runs it
+# (scripts/bench_families.py:80-101): 16 frames 512x512, 50 DDIM steps,
+# CFG 7.5; K1 at the 14 spatial blocks (1024 tokens, D = 72), the
+# temporal blocks (16 frames) and the cross-attention (77 keys) eager
+LATTE_PROMPT = "a dog running through a meadow"
+LATTE_CALL = dict(negative_prompt="low quality", num_frames=16, height=512,
+                  width=512, guidance_scale=7.5, decode_chunk=8, seed=1234,
+                  output_type="np")
+FAMILY_STEPS = 50
+LATTE_K1_PER_CALL = 14
+# phase 26: CogVideoX-2B (BASELINE.json configs[3]) as vdx's family bench
+# runs it (scripts/bench_families.py:104-139): 49 frames 480x720, 50 DDIM
+# steps, CFG 6.0, T5-XXL offloaded, the causal decode in tiles of 40
+# latent pixels; K1 at the 30 joint attentions (226 text + 13 x 30 x 45
+# video tokens, D = 64)
+COG_PROMPT = "a sailboat gliding across a calm lake at dawn"
+COG_CALL = dict(num_frames=49, height=480, width=720, guidance_scale=6.0,
+                decode_spatial_tile=40, seed=1234, output_type="np")
+COG_K1_PER_CALL = 30
+# pipeline keyword overrides by family ("ms", "svd", "latte", "cog"); a
+# CPU rehearsal
 # gives tiny configs, the fp32 policy and device="cpu"
 FAMILY_BUILD: dict = {}
 
@@ -399,9 +440,16 @@ def check_kernels(dev):
         ("K1", (50, 9216, 5, 64), "svd", "level-0 self-attn", True),
         ("K1", (50, 2304, 10, 64), "svd", "level-1 self-attn", True),
         ("K1", (50, 576, 20, 64), "svd", "level-2 self-attn", False),
+        # the DiTs (phases 25-26): Latte-XL's spatial blocks at D = 72 (8
+        # columns padded on the DP = 80 instance), CogVideoX-2B's joint
+        # attention over 17,776 tokens (neither tail a tile multiple;
+        # the plain version over one head)
+        ("K1", (32, 1024, 16, 72), "latte", "spatial self-attn", False),
+        ("K1", (2, 17776, 30, 64), "cog", "joint attention", "head"),
     )
     path_label = {"batch": "512x512", "serve": "512x512",
-                  "ms": "ModelScope 256x256", "svd": "SVD 576x1024"}
+                  "ms": "ModelScope 256x256", "svd": "SVD 576x1024",
+                  "latte": "Latte-XL 512x512", "cog": "CogVideoX-2B 480x720"}
     static = dict(exp_impl="staticmax")
     for kname, (B, S, H, D), path, site, one_slice in attn_cases:
         t0 = time.time()
@@ -422,18 +470,26 @@ def check_kernels(dev):
         if moved != {counter: 1}:
             raise SystemExit(f"{kname} [{B},{S},{H},{D}]: launches {moved}, "
                              f"expected one on {counter!r}")
-        ref = plain(q[:2], k[:2], v[:2], scale=scale)
-        err = (out[:2].float() - ref.float()).abs()
+        # the plain version on two batch entries, or on one (b, h) slice
+        # where two entries' scores would not fit (75 GB at 17,776 tokens)
+        sl = (slice(0, 1), slice(None), slice(0, 1)) if one_slice == "head" \
+            else (slice(0, 2),)
+        ref = plain(q[sl], k[sl], v[sl], scale=scale)
+        err = (out[sl].float() - ref.float()).abs()
         tol = bf16_tol(ref)
         del ref
 
         def plain_full():
+            if one_slice == "head":
+                plain(q[sl], k[sl], v[sl], scale=scale)
+                return
             for i in range(0, 2 if one_slice else B, 2):
                 plain(q[i:i + 2], k[i:i + 2], v[i:i + 2], scale=scale)
 
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         ms = cuda_ms(lambda: fn(q, k, v, scale=scale))
-        plain_ms = cuda_ms(plain_full, reps=3, warmup=1) * (B // 2 if one_slice else 1)
+        times = {"head": B * H, True: B // 2, False: 1}[one_slice]
+        plain_ms = cuda_ms(plain_full, reps=3, warmup=1) * times
         lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                                scale=scale))
         b_ms, b_by = bound(4.0 * B * H * S * S * D, 4 * q.numel() * 2,
@@ -452,7 +508,9 @@ def check_kernels(dev):
             tol=tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
             library="F.scaled_dot_product_attention", bound_ms=b_ms,
             bound_by=b_by, seconds=time.time() - t0,
-            note=(f"plain_ms: one two-entry slice timed, times {B // 2}"
+            note=(f"plain_ms: one (b, h) slice timed, times {B * H}"
+                  if one_slice == "head" else
+                  f"plain_ms: one two-entry slice timed, times {B // 2}"
                   if one_slice else "")))
         del q, k, v, qt, kt, vt, out
         torch.cuda.empty_cache()
@@ -546,6 +604,20 @@ def check_kernels(dev):
         ("K3", (1, 589824, 128), bf16, 1e-6, True,
          "VAE encoder down-0 GN-SiLU, the SVD image at 576x1024", "svd",
          "encode"),
+        # Latte's SD VAE decode chunk at 512x512 (phase 25)
+        ("K3", (8, 262144, 128), bf16, 1e-6, True,
+         "VAE decoder GN-SiLU at 512x512, Latte's decode", "latte", "decode"),
+        # CogVideoX's causal decode in 40x40-latent tiles (phase 26): the
+        # GNs span the tile's 13, then 26 and 52 frames
+        ("K3", (1, 20800, 512), bf16, 1e-6, True,
+         "causal VAE decoder 512-channel GN-SiLU, 13 frames x 40x40", "cog",
+         "decode"),
+        ("K3", (1, 1331200, 256), bf16, 1e-6, True,
+         "causal VAE decoder 256-channel GN-SiLU, 52 frames x 160x160", "cog",
+         "decode"),
+        ("K3", (1, 5324800, 128), bf16, 1e-6, True,
+         "causal VAE decoder 128-channel GN-SiLU, 52 frames x 320x320", "cog",
+         "decode"),
     )
     for kname, (B, S, C), dtype, eps, silu, where, path, stage in gn_cases:
         t0 = time.time()
@@ -903,12 +975,19 @@ def plain_versions(*kernels: str):
     from vdx_torch.kernels.groupnorm import group_norm_moments_plain
 
     def attn(q, k, v, *, scale, exp_impl, block_k, **_):
-        # batch slices keep the score tensor small
+        # batch slices of two keep the score tensor small; where two
+        # entries' scores pass 2^30 elements (CogVideoX's 17,776 tokens),
+        # one entry and as many heads as fit
+        B, Sq, H = q.shape[:3]
+        per = (1 << 30) // (Sq * k.shape[1])
+        bs, hs = (2, H) if 2 * H <= per else (1, max(1, min(H, per)))
+        plain = partial(flash_attention_dt_plain, scale=scale,
+                        exp_impl=exp_impl, block_k=block_k)
         return torch.cat([
-            flash_attention_dt_plain(q[i:i + 2], k[i:i + 2], v[i:i + 2],
-                                     scale=scale, exp_impl=exp_impl,
-                                     block_k=block_k)
-            for i in range(0, q.shape[0], 2)])
+            torch.cat([plain(q[i:i + bs, :, h:h + hs], k[i:i + bs, :, h:h + hs],
+                             v[i:i + bs, :, h:h + hs])
+                       for h in range(0, H, hs)], dim=2)
+            for i in range(0, B, bs)])
 
     def gn(x, num_groups, scale, bias, eps=1e-5, with_silu=True):
         B, C = x.shape[0], x.shape[-1]
@@ -2617,6 +2696,7 @@ def run_serving(pipe, clip, v2v_frames, gn_per_call) -> tuple:
         batched.denoise_batch = real_denoise
         server.stop()
         bserver.stop()
+        bsvc.stop_worker()  # its worker thread holds the sibling pipeline
         shutil.rmtree(journal, ignore_errors=True)
 
     # 6. the tracer on the UNet: one 512 forward, the launches unchanged
@@ -2677,9 +2757,12 @@ def run_serving(pipe, clip, v2v_frames, gn_per_call) -> tuple:
 # ----------------------------------------------------------------------
 def family_gn_expectations(dev) -> dict:
     """Every GroupNorm of one UNet3D call (CFG batch 2 x 16 frames at
-    256x256) and one SD VAE decode chunk (8 frames), and of one SVD UNet
+    256x256) and one SD VAE decode chunk (8 frames), of one SVD UNet
     call (2 x 25 frames at 576x1024), one temporal-decoder chunk (5
-    frames) and the conditioning image's VAE encode, traced on the meta
+    frames) and the conditioning image's VAE encode, of Latte's SD VAE
+    decode chunk (8 frames at 512x512; its DiT has no GroupNorm) and of
+    CogVideoX's causal decode (13 latent frames at 480x720 in six tiles of
+    40x40), traced on the meta
     device (scripts/bench_gn_torch.py), each driven through ops.groupnorm
     as often as the path runs it with the GN counters reset: one [gn] line
     a path, its launches checked against the launch plan
@@ -2691,12 +2774,20 @@ def family_gn_expectations(dev) -> dict:
 
     bench = load_script("bench_gn_torch")
     expected = {}
-    for path, family, args in (
+    for path, family, args, tile in (
             ("ms", "modelscope", (MS_CALL["height"], MS_CALL["width"],
-                                  MS_CALL["num_frames"], MS_CALL["decode_chunk"])),
+                                  MS_CALL["num_frames"], MS_CALL["decode_chunk"]),
+             0),
             ("svd", "svd", (SVD_CALL["height"], SVD_CALL["width"],
-                            SVD_CALL["num_frames"], SVD_CALL["decode_chunk"]))):
-        for stage, sites in bench.family_gn_sites(family, *args).items():
+                            SVD_CALL["num_frames"], SVD_CALL["decode_chunk"]), 0),
+            ("latte", "latte", (LATTE_CALL["height"], LATTE_CALL["width"],
+                                LATTE_CALL["num_frames"],
+                                LATTE_CALL["decode_chunk"]), 0),
+            ("cog", "cogvideox", (COG_CALL["height"], COG_CALL["width"],
+                                  COG_CALL["num_frames"], 0),
+             COG_CALL["decode_spatial_tile"])):
+        for stage, sites in bench.family_gn_sites(family, *args,
+                                                  tile=tile).items():
             t0 = time.time()
             want = {"K2": 0, "K3": 0}
             for (B, S, C, G, _, _), n in sites.items():
@@ -2950,6 +3041,217 @@ def run_svd(gn: dict, frame) -> tuple:
     return path, summary
 
 
+# ----------------------------------------------------------------------
+# phases 25-26: the DiT families, Latte and CogVideoX
+# ----------------------------------------------------------------------
+def check_dit_weights(pipe, what: str, gates) -> None:
+    """:func:`check_random_weights`, and every adaLN gate and output
+    projection named by ``gates`` (weight suffixes of the denoiser) holds
+    non-zero values, so each block's attention reaches the frames (vdx
+    initialises them to zeros: every block the identity)."""
+    check_random_weights(pipe, what)
+    named = [(n, p) for n, p in pipe.unet.named_parameters()
+             if any(n.endswith(g) for g in gates)]
+    zero = [n for n, p in named if not p.any()]
+    if not named or zero:
+        raise SystemExit(f"{what}: gates and output projections {len(named)}, "
+                         f"all-zero {zero[:5]}")
+
+
+def free_card(label: str) -> int:
+    """Collect what earlier phases left in reference cycles, so this
+    phase's peaks are its own; -> the bytes still allocated, logged (the
+    stopped servers of phases 22 and 24 hold nothing: ROADMAP F15)."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    log(f"[{label}] allocated on the card before the phase: {held} "
+        f"({held / 2**30:.2f} GiB)")
+    return held
+
+
+def first_family_input(pipe, prompt, negative_prompt, shape, seed):
+    """The first step's CFG-batched model input, its timesteps and the
+    text states of a family pipeline (its own sampler and tables)."""
+    import torch
+
+    from vdx_torch.schedulers import get_sampler
+
+    with torch.inference_mode():
+        ctx = pipe.encode_prompt(prompt, negative_prompt)
+        tables = pipe._get_tables(pipe.scheduler, FAMILY_STEPS)
+        lat = pipe.initial_noise(shape, seed) * tables.init_noise_sigma
+        model_in = get_sampler(pipe.scheduler).scale_model_input(
+            torch.cat([lat, lat]), 0, tables)
+    return model_in, tables.timesteps[0].expand(2), ctx
+
+
+def run_latte(gn: dict) -> dict:
+    """Phase 25: LattePipeline at full width (LatteConfig.xl(), the SD VAE,
+    CLIP ViT-L text; bf16, seeded random weights): a 2-step warm-up, one
+    DiT evaluation against the plain K1 (14 a call at [32, 1024, 16, 72],
+    no GroupNorm), the timed call (16 frames 512x512, 50 DDIM steps, CFG
+    7.5) with its launches checked."""
+    import torch
+
+    from vdx_torch.core.dtypes import BF16_POLICY
+    from vdx_torch.models.dit import LatteConfig
+    from vdx_torch.pipelines import LattePipeline
+
+    t_phase = time.time()
+    held = free_card("latte")
+    pipe = LattePipeline.with_random_params(
+        seed=0, **({"unet_config": LatteConfig.xl(), "policy": BF16_POLICY}
+                   | FAMILY_BUILD.get("latte", {})))
+    n_params = {c: sum(p.numel() for p in m.parameters())
+                for c, m in pipe._components().items()}
+    check_dit_weights(pipe, "latte", ("adaln.proj.weight", "attn1.to_out.0.weight",
+                                      "proj_out.weight", "scale_shift_table"))
+    log(f"[latte] params {n_params} {pipe.policy.compute_dtype} on "
+        f"{pipe.device}, scheduler {pipe.scheduler}, {pipe.unet.config}")
+    kw = dict(LATTE_CALL)
+    t0 = time.time()
+    pipe(LATTE_PROMPT, num_inference_steps=2, **kw)
+    log(f"[latte] warm-up, 2 steps ({time.time() - t0:.1f}s)")
+
+    F_, H, W = kw["num_frames"], kw["height"], kw["width"]
+    ds = pipe.vae.config.downscale
+    model_in, t_b, ctx = first_family_input(
+        pipe, LATTE_PROMPT, kw["negative_prompt"], (1, F_, H // ds, W // ds, 4),
+        kw["seed"])
+    rel = family_reference_eval(pipe, "latte", model_in, t_b, (ctx,),
+                                {"K1": LATTE_K1_PER_CALL, "K4": 0, "K2": 0,
+                                 "K3": 0})
+    del ctx, model_in
+    torch.cuda.empty_cache()
+
+    secs, frames, lat_finite, by_stage, peak = timed_call(
+        pipe, "latte", prompt=LATTE_PROMPT, num_inference_steps=FAMILY_STEPS,
+        **kw)
+    chunks = F_ // kw["decode_chunk"]
+    check_family_launches("latte", by_stage, LATTE_K1_PER_CALL, gn, "latte",
+                          FAMILY_STEPS, chunks)
+    check_frames(frames, (F_, H, W, 3), lat_finite, "latte")
+    log(f"[latte] {secs:.3f}s a video, {F_ / secs:.4f} frames/s, peak "
+        f"{peak} ({peak / 2**30:.2f} GiB); phase {time.time() - t_phase:.1f}s")
+    del pipe
+    return dict(secs=secs, by_stage=by_stage, peak=peak, frames=F_,
+                steps=FAMILY_STEPS, chunks=chunks, rel_l2_unet_eval=rel,
+                params=n_params, held_before=held)
+
+
+def run_cogvideox(gn: dict) -> tuple:
+    """Phase 26: CogVideoXPipeline at full width (CogVideoXConfig.b2(),
+    T5Config.xxl(), CausalVAEConfig.cogvideox(); bf16, T5 offloaded): a
+    2-step warm-up, one DiT evaluation against the plain K1 (30 a call at
+    [2, 17776, 30, 64]), the timed call with the prompt cache cleared (49
+    frames 480x720, 50 DDIM steps, CFG 6.0, decode_spatial_tile=40): its
+    launches by stage, its ms split by CUDA events into the T5 encode
+    (weights to the card and back), the denoise loop and the decode, and
+    the peak of each."""
+    import torch
+
+    from vdx_torch.core.dtypes import BF16_POLICY
+    from vdx_torch.models.cogvideox import CausalVAEConfig, CogVideoXConfig
+    from vdx_torch.models.t5 import T5Config
+    from vdx_torch.pipelines import CogVideoXPipeline
+
+    t_phase = time.time()
+    held = free_card("cogvideox")
+    pipe = CogVideoXPipeline.with_random_params(
+        seed=0, **({"dit_config": CogVideoXConfig.b2(),
+                    "vae_config": CausalVAEConfig.cogvideox(),
+                    "t5_config": T5Config.xxl(), "policy": BF16_POLICY,
+                    "offload_text_encoder": True}
+                   | FAMILY_BUILD.get("cog", {})))
+    torch.cuda.synchronize()
+    n_params = {c: sum(p.numel() for p in m.parameters())
+                for c, m in pipe._components().items()}
+    check_dit_weights(pipe, "cogvideox", ("norm1.linear.weight",
+                                          "norm2.linear.weight",
+                                          "attn1.to_out.0.weight",
+                                          "proj_out.weight"))
+    log(f"[cogvideox] params {n_params} {pipe.policy.compute_dtype} on "
+        f"{pipe.device}, scheduler {pipe.scheduler} "
+        f"{pipe._sampler_cfg(pipe.scheduler)}, {pipe.unet.config}; init "
+        f"{time.time() - t_phase:.1f}s")
+    kw = dict(COG_CALL)
+    t0 = time.time()
+    pipe(COG_PROMPT, num_inference_steps=2, **kw)
+    log(f"[cogvideox] warm-up, 2 steps, T5 offloaded to pinned host memory "
+        f"({time.time() - t0:.1f}s)")
+
+    F_, H, W = kw["num_frames"], kw["height"], kw["width"]
+    vcfg = pipe.vae_config
+    shape = (1, 1 + (F_ - 1) // vcfg.temporal_downscale,
+             H // vcfg.spatial_downscale, W // vcfg.spatial_downscale,
+             pipe.latent_channels)
+    model_in, t_b, ctx = first_family_input(pipe, COG_PROMPT, "", shape,
+                                            kw["seed"])
+    rel = family_reference_eval(pipe, "cogvideox", model_in, t_b, (ctx,),
+                                {"K1": COG_K1_PER_CALL, "K4": 0, "K2": 0,
+                                 "K3": 0})
+    del ctx, model_in
+    torch.cuda.empty_cache()
+
+    # the peak of each stage: read and reset where the conditioning ends
+    # and where the decode starts
+    peaks = {}
+    prep, decode = pipe._prepare_cond, pipe._decode
+
+    def stage_peak(name):
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+
+    def prep_peak(*a, **k):
+        out = prep(*a, **k)
+        stage_peak("encode")
+        return out
+
+    def decode_peak(*a, **k):
+        stage_peak("denoise")
+        return decode(*a, **k)
+
+    pipe._prepare_cond, pipe._decode = prep_peak, decode_peak
+    pipe._text_cache.clear()  # the timed call encodes: T5 to the card
+    stage_ms = {}
+    try:
+        out, secs, returned, by_stage, peaks["decode"] = counted_run(
+            pipe, lambda: pipe(COG_PROMPT, num_inference_steps=FAMILY_STEPS,
+                               **kw), stage_ms)
+    finally:
+        for name in ("_prepare_cond", "_decode"):
+            pipe.__dict__.pop(name, None)
+    frames = out.frames[0]
+    log(f"[cogvideox] T5 encode + {FAMILY_STEPS} DDIM steps + tiled causal "
+        f"decode: {secs:.3f}s (returned after {returned:.3f}s) "
+        f"frames/s={F_ / secs:.4f} split: T5 encode with its host round trip "
+        f"{stage_ms['encode']:.1f} ms, denoise {stage_ms['denoise']:.1f} ms, "
+        f"decode {stage_ms['decode']:.1f} ms (CUDA events); peaks: encode "
+        f"{peaks['encode'] / 2**30:.2f} GiB, denoise "
+        f"{peaks['denoise'] / 2**30:.2f} GiB, decode "
+        f"{peaks['decode'] / 2**30:.2f} GiB; encode={by_stage['encode']} "
+        f"denoise={by_stage['denoise']} decode={by_stage['decode']} frames "
+        f"{frames.shape} {frames.dtype} min={int(frames.min())} "
+        f"max={int(frames.max())} mean={float(frames.mean()):.2f}")
+    check_family_launches("cogvideox", by_stage, COG_K1_PER_CALL, gn, "cog",
+                          FAMILY_STEPS, 1)
+    check_frames(frames, (F_, H, W, 3),
+                 bool(torch.isfinite(out.latents).all()), "cogvideox")
+    log(f"[cogvideox] {secs:.3f}s a video; phase {time.time() - t_phase:.1f}s")
+    del pipe, out
+    path = dict(secs=secs, by_stage=by_stage, peak=max(peaks.values()),
+                frames=F_, steps=FAMILY_STEPS, chunks=1)
+    summary = dict(stage_ms=stage_ms, peaks=peaks, rel_l2_unet_eval=rel,
+                   params=n_params, held_before=held)
+    return path, summary
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(HANG_BUDGET_S, exit=True)
     t_start = time.time()
@@ -3188,6 +3490,15 @@ def main() -> int:
     paths["svd"], svd = run_svd(family_gn, svd_frame)
     torch.cuda.empty_cache()
 
+    # 25. Latte-XL: 16 frames 512x512, 50 DDIM steps
+    paths["latte"] = run_latte(family_gn)
+    torch.cuda.empty_cache()
+
+    # 26. CogVideoX-2B: 49 frames 480x720, 50 DDIM steps, T5-XXL offloaded,
+    # the causal decode in spatial tiles
+    paths["cog"], cogvideox = run_cogvideox(family_gn)
+    torch.cuda.empty_cache()
+
     # Counts are per kernel at every shape, within the row's stage of its
     # path's run: the denoise loop of a timed call (per step), its VAE
     # encode and decode (per chunk), the GN dispatch at 2560 channels, the
@@ -3235,6 +3546,9 @@ def main() -> int:
         "study": study, "serving": serving,
         "modelscope": {k: paths["ms"][k] for k in ("rel_l2_unet_eval", "params")},
         "svd": svd,
+        "latte": {k: paths["latte"][k]
+                  for k in ("rel_l2_unet_eval", "params", "held_before")},
+        "cogvideox": cogvideox,
         # every flash attention counter (kernels.flash_attention
         # .launch_counts) with its launches at phase 3's edges
         "edge_launches": edge_launches,

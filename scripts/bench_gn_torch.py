@@ -99,12 +99,17 @@ def gpu_ms(fn, reps: int = REPS, trials: int = TRIALS) -> float:
 
 
 def family_gn_sites(family: str, height: int, width: int, frames: int,
-                    chunk: int):
+                    chunk: int, tile: int = 0):
     """The same for the other families at full width, traced on the meta
     device: "modelscope" (one UNet3D call, CFG batch 2 x ``frames``; one
-    SD VAE decode chunk of ``chunk`` frames) or "svd" (one
+    SD VAE decode chunk of ``chunk`` frames), "svd" (one
     UNetSpatioTemporal call; one temporal-decoder chunk of ``chunk``
-    frames; the VAE encode of the one conditioning image)."""
+    frames; the VAE encode of the one conditioning image), "latte" (one SD
+    VAE decode chunk of ``chunk`` frames: the DiT has no GroupNorm) or
+    "cogvideox" (the causal VAE decode of the whole clip, 1 + (frames -
+    1) // 4 latent frames, ``chunk`` unused; with ``tile`` latent pixels,
+    every spatial tile of the plane, each counted as often as the tiles
+    run)."""
     import torch
 
     from vdx_torch.models.vae import AutoencoderKL, TemporalDecoder, VAEConfig
@@ -119,8 +124,18 @@ def family_gn_sites(family: str, height: int, width: int, frames: int,
                           mod.num_groups, mod.eps, mod.with_silu)] += 1
 
     h, w = height // 8, width // 8
+    if family == "cogvideox":
+        return {"decode": _causal_decode_sites(h, w, frames, tile, record,
+                                               where, sites)}
     with torch.device("meta"), torch.inference_mode():
         vae = AutoencoderKL(VAEConfig())
+        if family == "latte":
+            for m in vae.modules():
+                if isinstance(m, GroupNormModule):
+                    m.register_forward_pre_hook(record)
+            where.append("decode")
+            vae.decode(torch.empty(chunk, h, w, 4))
+            return dict(sites)
         if family == "modelscope":
             from vdx_torch.models.unet3d import UNet3D, UNet3DConfig
 
@@ -149,6 +164,35 @@ def family_gn_sites(family: str, height: int, width: int, frames: int,
             where.append("encode")
             vae.encode_moments(torch.empty(1, height, width, 3))
     return dict(sites)
+
+
+def _causal_decode_sites(h: int, w: int, frames: int, tile: int, record,
+                         where, sites) -> collections.Counter:
+    """CogVideoX's causal decoder over ``frames`` frames of an h x w latent
+    plane, whole or (``tile``) in the spatial tiles of
+    models/vae.decode_spatial_tiled (overlap 8), on the meta device."""
+    import torch
+
+    from vdx_torch.models.cogvideox import CausalVAEConfig, CausalVAEDecoder
+    from vdx_torch.models.vae import _tile_starts
+    from vdx_torch.nn.resnet import GroupNormModule
+
+    cfg = CausalVAEConfig()
+    f_lat = 1 + (frames - 1) // cfg.temporal_downscale
+    th, tw, n = h, w, 1
+    if tile:
+        t = min(tile, h, w)
+        stride = t - min(8, t - 1)
+        th = tw = t
+        n = len(_tile_starts(h, t, stride)) * len(_tile_starts(w, t, stride))
+    with torch.device("meta"), torch.inference_mode():
+        dec = CausalVAEDecoder(cfg)
+        for m in dec.modules():
+            if isinstance(m, GroupNormModule):
+                m.register_forward_pre_hook(record)
+        where.append("decode")
+        dec(torch.empty(1, f_lat, th, tw, cfg.latent_channels))
+    return collections.Counter({k: c * n for k, c in sites["decode"].items()})
 
 
 def site_inputs(site, dev, seed: int = 0):

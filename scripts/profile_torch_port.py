@@ -6,6 +6,8 @@
     python3 scripts/profile_torch_port.py --video2video         # + an encode chunk
     python3 scripts/profile_torch_port.py --family modelscope   # 256x256, DDIM
     python3 scripts/profile_torch_port.py --family svd          # 576x1024, EDM
+    python3 scripts/profile_torch_port.py --family latte        # 512x512, DDIM
+    python3 scripts/profile_torch_port.py --family cogvideox    # 49f 480x720
 
 Builds the family's full-width pipeline (bf16, random weights from seed
 0), warms it up, then traces with ``torch.profiler`` one denoising step of
@@ -15,7 +17,11 @@ and one decode chunk. AnimateDiff: 2 x 16 frames at size/8 latents, an
 encode chunk. ModelScope (UNet3D): 2 x 16 frames, an 8-frame chunk.
 SVD: 2 x 25 frames at 576x1024 with the conditioning concatenated, a
 5-frame temporal-decoder chunk, and the image's conditioning (VAE encode
-and CLIP vision). Prints, per phase, the wall time, the summed
+and CLIP vision). Latte (the DiT): 2 x 16 frames at 512x512, an 8-frame
+SD VAE decode chunk. CogVideoX-2B: 2 x 13 latent frames at 480x720 with
+226 T5 tokens (v-prediction DDIM), the causal decode of the whole clip in
+spatial tiles of 40 latent pixels (49 frames), and the offloaded T5-XXL
+encode of one prompt pair (its weights to the card and back). Prints, per phase, the wall time, the summed
 device-kernel time by category and the device idle share (1 - kernel
 time / wall time), then the top kernels by device time. The categories
 are read off the kernel names.
@@ -97,7 +103,31 @@ def phases_of(args, torch):
     from vdx_torch.pipelines.base import _Carry, _Request
     from vdx_torch.schedulers import get_sampler, is_multistep
 
-    if args.family == "svd":
+    if args.family == "cogvideox":
+        from vdx_torch.models.cogvideox import CogVideoXConfig
+        from vdx_torch.pipelines import CogVideoXPipeline
+
+        scheduler = args.scheduler or "ddim"
+        pipe = CogVideoXPipeline.with_random_params(
+            seed=0, dit_config=CogVideoXConfig.b2(), policy=BF16_POLICY,
+            scheduler=scheduler, offload_text_encoder=True, device="cuda")
+        F_, H, W = 49, 480, 720
+        print(f"cogvideox {F_} x {H}x{W}, {scheduler}", flush=True)
+
+        def encode():
+            pipe._text_cache.clear()
+            return pipe.encode_prompt("a sailboat gliding across a calm lake")
+
+        ctx = encode()
+        shape = (1, 1 + (F_ - 1) // 4, H // 8, W // 8, 16)
+        den_args, concat, key, scale = (ctx,), None, 1234, 6.0
+        chunk = shape[1]
+
+        def decode():
+            pipe._decode_raw(chunk, spatial_tile=40, trim=F_)(lat)
+
+        extra = [(encode, "T5-XXL encode, offloaded")]
+    elif args.family == "svd":
         import numpy as np
 
         from vdx_torch.pipelines import SVDImg2VidPipeline
@@ -121,11 +151,12 @@ def phases_of(args, torch):
         extra = [(lambda: pipe._prepare_cond(1234, cond, shape),
                   "conditioning (VAE encode + CLIP vision)")]
     else:
-        from vdx_torch.pipelines import (AnimateDiffPipeline,
+        from vdx_torch.pipelines import (AnimateDiffPipeline, LattePipeline,
                                          TextToVideoMSPipeline)
 
         ms = args.family == "modelscope"
-        cls = TextToVideoMSPipeline if ms else AnimateDiffPipeline
+        cls = {"modelscope": TextToVideoMSPipeline, "latte": LattePipeline,
+               "animatediff": AnimateDiffPipeline}[args.family]
         scheduler = args.scheduler or "ddim"
         pipe = cls.with_random_params(seed=0, policy=BF16_POLICY,
                                       scheduler=scheduler, device="cuda")
@@ -142,12 +173,14 @@ def phases_of(args, torch):
 
         extra = ([(lambda: pipe.vae.encode(frames), "encode chunk")]
                  if args.video2video else [])
-    tables = pipe._get_tables(scheduler, 25)
+    steps = 50 if args.family in ("latte", "cogvideox") else 25
+    tables = pipe._get_tables(scheduler, steps)
     noise = pipe.initial_noise(shape, key)
     lat = noise * tables.init_noise_sigma
     z = noise[0, :chunk]
-    req = _Request(None, True, scale, scheduler, tables, None, 25,
-                   den_args=den_args, concat=concat)
+    req = _Request(None, True, scale, scheduler, tables,
+                   pipe._sampler_cfg(scheduler), steps, den_args=den_args,
+                   concat=concat)
     sampler = get_sampler(scheduler)
 
     def step():
@@ -161,10 +194,11 @@ def phases_of(args, torch):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--family", default="animatediff",
-                    choices=["animatediff", "modelscope", "svd"])
+                    choices=["animatediff", "modelscope", "svd", "latte",
+                             "cogvideox"])
     ap.add_argument("--size", type=int, default=0,
-                    help="frame height and width (text families; default "
-                         "512 AnimateDiff, 256 ModelScope)")
+                    help="frame height and width (AnimateDiff, ModelScope "
+                         "and Latte; default 512, ModelScope 256)")
     ap.add_argument("--scheduler", default=None,
                     help="default ddim (text families), edm (SVD)")
     ap.add_argument("--video2video", action="store_true",

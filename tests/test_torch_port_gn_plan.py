@@ -193,10 +193,13 @@ def _family_sites() -> dict:
     bench = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(bench)
     out = {}
-    for family, args in (("modelscope", (256, 256, 16, 8)),
-                         ("svd", (576, 1024, 25, 5))):
-        for p, sites in bench.family_gn_sites(family, *args).items():
-            out[(family, p)] = sites
+    for family, args, tile in (("modelscope", (256, 256, 16, 8), 0),
+                               ("svd", (576, 1024, 25, 5), 0),
+                               ("latte", (512, 512, 16, 8), 0),
+                               ("cogvideox", (480, 720, 49, 0), 0),
+                               ("cogvideox", (480, 720, 49, 0), 40)):
+        for p, sites in bench.family_gn_sites(family, *args, tile=tile).items():
+            out[(family + (f" tile {tile}" if tile else ""), p)] = sites
     return out
 
 
@@ -214,11 +217,14 @@ def test_launch_plan_at_every_site():
         if height == width and height in STREAMED:
             assert STREAMED[height] <= {s[:3] for s in sites}
     assert n_sites > 60
-    # the other families at full width (chip_smoke.py phases 23-24): the
+    # the other families at full width (chip_smoke.py phases 23-26): the
     # UNet3D call and SD VAE decode chunk at ModelScope's 16 x 256x256, the
     # SVD UNet call (its frame-spanning tnorms over 25 frames), the
     # temporal decoder's 5-frame chunk and the conditioning image's
-    # encode at 576x1024
+    # encode at 576x1024, Latte's SD VAE decode chunk at 512x512, and
+    # CogVideoX's causal decode of 13 latent frames at 480x720, whole and
+    # in spatial tiles of 40 (vdx leaves its 70,200 x 512 GN on XLA; the
+    # port's plan takes every site)
     family = _family_sites()
     for path, sites in family.items():
         for B, S, C, G, _, _ in sites:
@@ -226,7 +232,13 @@ def test_launch_plan_at_every_site():
                 _check_plan(B, S, C, G, itemsize)
     assert (2, 16 * 1024, 320, 32) in {s[:4] for s in family[("modelscope", "unet")]}
     assert (1, 5 * 576 * 1024, 128, 32) in {s[:4] for s in family[("svd", "decode")]}
-    assert sum(len(v) for v in family.values()) > 60
+    assert (1, 13 * 60 * 90, 512, 32) in {s[:4] for s in family[("cogvideox",
+                                                                 "decode")]}
+    tiled = family[("cogvideox tile 40", "decode")]
+    assert tiled[(1, 13 * 40 * 40, 512, 32, 1e-6, True)] == 12 * 6  # 6 tiles
+    assert (1, 52 * 320 * 320, 128, 32) in {s[:4] for s in tiled}
+    assert (8, 512 * 512, 128, 32) in {s[:4] for s in family[("latte", "decode")]}
+    assert sum(len(v) for v in family.values()) > 70
     # the widest stripe (4 groups of 30 channels) needs 16 CTAs at 768
     wide = KG.k2_plan(9216, 960, 32, BF16)
     assert (wide.cluster, wide.stripe_channels, wide.pair) == (16, 120, False)

@@ -113,9 +113,9 @@ def test_pab_segments_schedule_and_cache(pab_run):
     step, seen = [0], {}
     compute = Attention._compute
 
-    def counted(self, x, context):
+    def counted(self, x, context, rope):
         seen.setdefault(self.pab_key, []).append(step[0])
-        return compute(self, x, context)
+        return compute(self, x, context, rope)
 
     hook = tp.unet.register_forward_hook(
         lambda m, a, o: step.__setitem__(0, step[0] + 1))

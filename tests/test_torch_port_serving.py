@@ -445,6 +445,9 @@ def test_served_slice_matches_vdx():
                                        {"prompt": PROMPT, "seed": 1234})
     finally:
         srv.stop()
+    # a stopped server's job worker is gone, and with it its hold on the
+    # services' pipelines
+    assert not srv.jobs._worker.is_alive()
     assert code == 200 and resp["num_frames"] == 8
     got = decode_pngs([base64.b64decode(f) for f in resp["frames"]])
     assert got.shape == want.shape == (8, 64, 64, 3) and want.std() > 0
@@ -469,6 +472,14 @@ def test_served_slice_matches_vdx():
         assert dist[b] <= 1 and dist[b] < min(d for i, d in enumerate(dist)
                                               if i != b), dist
         assert r["seed"] == reqs[b]["seed"]
+    # the batching worker stops and starts again
+    worker = svc._worker
+    svc.stop_worker()
+    assert not worker.is_alive() and svc._worker is None
+    svc.start_worker()
+    assert svc.generate({"prompt": "a fox", "seed": 3,
+                         "num_inference_steps": 1})["frames"] == out[3]["frames"]
+    svc.stop_worker()
     svc2 = TS.BatchingGenerationService(tpipe, SIZE, autostart=False)
     out2 = _burst(svc2, reqs[:2])
     assert svc2.batches_run == 1

@@ -359,11 +359,14 @@ def test_cli_loader_lock_and_imports(tmp_path, capsys, monkeypatch):
     assert _loaded(["vdx_torch.serving", "vdx_torch.tracing", "vdx_torch.utils",
                     "vdx_torch.cli"]) == []
     assert _loaded(["vdx_torch.analysis"]) == ["pandas"]
-    # the family base, ModelScope and SVD, and the experiment CLIs (07 and
-    # 08 are the pandas analyses)
+    # the family base, ModelScope, SVD, Latte and CogVideoX, and the
+    # experiment CLIs (07 and 08 are the pandas analyses)
     assert _loaded(["vdx_torch.pipelines", "vdx_torch.pipelines.svd",
                     "vdx_torch.pipelines.text_to_video_ms",
+                    "vdx_torch.pipelines.latte", "vdx_torch.pipelines.cogvideox",
                     "vdx_torch.models.unet3d", "vdx_torch.models.svd_unet",
+                    "vdx_torch.models.dit", "vdx_torch.models.t5",
+                    "vdx_torch.models.cogvideox",
                     "vdx_torch.models.clip_vision", "vdx_torch.ops.resize",
                     "vdx_torch.experiments.experiments_common",
                     "vdx_torch.experiments.exp01_baseline_generation",

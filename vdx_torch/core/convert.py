@@ -6,14 +6,18 @@ the bridge. This module keeps its own copy of the rule tables it needs —
 UNetMotion, the AutoencoderKL and the CLIP text tower — and runs
 them backwards: :func:`params_from_jax` turns a flattened vdx parameter
 tree (numpy leaves) into a state_dict for the port's module. The
-families: UNetMotion, UNet3D (ModelScope) and UNetSpatioTemporal (SVD)
-denoisers, the AutoencoderKL, SVD's temporal decoder, and the CLIP text
-and vision towers.
+families: UNetMotion, UNet3D (ModelScope), UNetSpatioTemporal (SVD),
+LatteDiT and CogVideoXDiT denoisers, the AutoencoderKL, SVD's temporal
+decoder, the CLIP text and vision towers, T5, and CogVideoX's causal VAE
+encoder and decoder.
 
 Layout transforms (vdx <- torch):
   * Conv:   torch OIHW     -> flax HWIO   (``t_conv``)
   * Conv3d: torch OITHW    -> flax THWIO  (``t_conv3d``: the (3, 1, 1)
-    frame convs)
+    frame convs, the causal VAE's 3x3x3 convs)
+  * 1x1x1 Conv3d [O, I, 1, 1, 1] -> Dense [I, O] (``t_conv3d_1x1_dense``)
+  * patch Conv2d [D, C, p, p] -> Dense [p*p*C, D] (``t_patch_conv``; its
+    inverse needs p and C: the rule tables carry ``patch_conv(p, C)``)
   * Dense:  torch [out,in] -> flax [in,out] (``t_dense``)
   * Norms and embeddings: identical (``t_id``)
 """
@@ -44,13 +48,43 @@ def t_conv3d(w):  # torch OITHW -> flax THWIO
     return np.transpose(np.asarray(w), (2, 3, 4, 1, 0))
 
 
+def t_conv3d_1x1_dense(w):  # [O, I, 1, 1, 1] shortcut conv -> Dense [I, O]
+    w = np.asarray(w)
+    return w.reshape(w.shape[0], w.shape[1]).T
+
+
+def t_patch_conv(w):
+    """patch_embed Conv2d [D, C, p, p] -> Dense [p*p*C, D]: the DiTs
+    flatten a patch in (p_h, p_w, C) order."""
+    w = np.asarray(w)
+    return w.transpose(2, 3, 1, 0).reshape(-1, w.shape[0])
+
+
 # each rule's transform -> its inverse (vdx layout -> torch layout)
 _INVERSE = {
     t_conv: lambda w: np.transpose(np.asarray(w), (3, 2, 0, 1)),
     t_conv3d: lambda w: np.transpose(np.asarray(w), (4, 3, 0, 1, 2)),
+    t_conv3d_1x1_dense: lambda w: np.asarray(w).T[:, :, None, None, None],
     t_dense: lambda w: np.transpose(np.asarray(w), (1, 0)),
     t_id: np.asarray,
 }
+
+
+def patch_conv(p: int, channels: int):
+    """``t_patch_conv`` for patches of p x p x ``channels``, with its
+    inverse registered (the flat [p*p*C, D] kernel does not say p)."""
+    key = ("patch_conv", p, channels)
+    if key not in _PATCH_CONV:
+        def tr(w):
+            return t_patch_conv(w)
+
+        _INVERSE[tr] = lambda w: np.asarray(w).reshape(
+            p, p, channels, -1).transpose(3, 2, 0, 1)
+        _PATCH_CONV[key] = tr
+    return _PATCH_CONV[key]
+
+
+_PATCH_CONV: dict = {}
 
 # ----------------------------------------------------------------------
 # UNetMotion
@@ -536,16 +570,229 @@ def clip_vision_rules(config) -> Rules:
 
 
 # ----------------------------------------------------------------------
+# Latte DiT (diffusers' LatteTransformer3DModel, the adaLN excepted)
+# ----------------------------------------------------------------------
+
+
+def latte_dit_rules(config) -> Rules:
+    """vdx LatteDiT path -> the port's key. diffusers' names throughout
+    but the adaLN: vdx's per-block ``adaln/proj`` maps one to one onto the
+    port-owned ``<block>.adaln.proj`` (vdx folds diffusers' global
+    ``adaln_single.linear`` and each block's ``scale_shift_table`` into
+    it, a two-tensor rule that does not run backwards;
+    :func:`fold_latte_adaln` does that fold for a diffusers checkpoint)."""
+    rules: Rules = {
+        "patch_embed/kernel": ("pos_embed.proj.weight",
+                               patch_conv(config.patch_size, config.in_channels)),
+        "patch_embed/bias": ("pos_embed.proj.bias", t_id),
+        "final_scale_shift_table": ("scale_shift_table", t_id),
+        "final_proj/kernel": ("proj_out.weight", t_dense),
+        "final_proj/bias": ("proj_out.bias", t_id),
+    }
+    te = "adaln_single.emb.timestep_embedder"
+    for i in (1, 2):
+        rules[f"t_proj_{i}/kernel"] = (f"{te}.linear_{i}.weight", t_dense)
+        rules[f"t_proj_{i}/bias"] = (f"{te}.linear_{i}.bias", t_id)
+    for i in range(config.depth):
+        bp = f"blocks_{i}"
+        hp = (f"transformer_blocks.{i // 2}" if i % 2 == 0
+              else f"temporal_transformer_blocks.{i // 2}")
+        rules[f"{bp}/adaln/proj/kernel"] = (f"{hp}.adaln.proj.weight", t_dense)
+        rules[f"{bp}/adaln/proj/bias"] = (f"{hp}.adaln.proj.bias", t_id)
+        for ours, theirs in (("attn", "attn1"), ("cross_attn", "attn2")):
+            for proj in ("to_q", "to_k", "to_v"):
+                rules[f"{bp}/{ours}/{proj}/kernel"] = (
+                    f"{hp}.{theirs}.{proj}.weight", t_dense)
+            rules[f"{bp}/{ours}/to_out/kernel"] = (
+                f"{hp}.{theirs}.to_out.0.weight", t_dense)
+            rules[f"{bp}/{ours}/to_out/bias"] = (f"{hp}.{theirs}.to_out.0.bias", t_id)
+        rules[f"{bp}/mlp/net_0/proj/kernel"] = (f"{hp}.ff.net.0.proj.weight", t_dense)
+        rules[f"{bp}/mlp/net_0/proj/bias"] = (f"{hp}.ff.net.0.proj.bias", t_id)
+        rules[f"{bp}/mlp/net_2/kernel"] = (f"{hp}.ff.net.2.weight", t_dense)
+        rules[f"{bp}/mlp/net_2/bias"] = (f"{hp}.ff.net.2.bias", t_id)
+    return rules
+
+
+def fold_latte_adaln(state_dict: Mapping, config) -> dict:
+    """A diffusers Latte state_dict with its adaLN in the port's layout, as
+    vdx's rule folds it: every block's ``adaln.proj.weight`` is the global
+    ``adaln_single.linear.weight`` and its bias the global bias plus the
+    block's ``scale_shift_table`` flattened. The folded keys leave the
+    dict; a dict without ``adaln_single.linear.weight`` comes back as it
+    is."""
+    if "adaln_single.linear.weight" not in state_dict:
+        return dict(state_dict)
+    sd = dict(state_dict)
+    w = sd.pop("adaln_single.linear.weight")
+    b = sd.pop("adaln_single.linear.bias")
+    for i in range(config.depth):
+        hp = (f"transformer_blocks.{i // 2}" if i % 2 == 0
+              else f"temporal_transformer_blocks.{i // 2}")
+        table = sd.pop(f"{hp}.scale_shift_table")
+        sd[f"{hp}.adaln.proj.weight"] = w
+        sd[f"{hp}.adaln.proj.bias"] = b + table.reshape(-1)
+    return sd
+
+
+# ----------------------------------------------------------------------
+# T5 encoder (transformers' T5EncoderModel), CogVideoX's text tower
+# ----------------------------------------------------------------------
+
+
+def t5_encoder_rules(config) -> Rules:
+    rules: Rules = {
+        "token_embedding/embedding": ("shared.weight", t_id),
+        "final_norm/scale": ("encoder.final_layer_norm.weight", t_id),
+    }
+    for i in range(config.num_layers):
+        lp, hb = f"layers_{i}", f"encoder.block.{i}"
+        rules[f"{lp}/norm1/scale"] = (f"{hb}.layer.0.layer_norm.weight", t_id)
+        rules[f"{lp}/norm2/scale"] = (f"{hb}.layer.1.layer_norm.weight", t_id)
+        for p in ("q", "k", "v", "o"):
+            rules[f"{lp}/attn/{p}/kernel"] = (
+                f"{hb}.layer.0.SelfAttention.{p}.weight", t_dense)
+        if i == 0:
+            rules[f"{lp}/attn/relative_attention_bias"] = (
+                f"{hb}.layer.0.SelfAttention.relative_attention_bias.weight", t_id)
+        for ff in ("wi_0", "wi_1", "wo"):
+            rules[f"{lp}/{ff}/kernel"] = (
+                f"{hb}.layer.1.DenseReluDense.{ff}.weight", t_dense)
+    return rules
+
+
+# ----------------------------------------------------------------------
+# CogVideoX DiT (diffusers' CogVideoXTransformer3DModel)
+# ----------------------------------------------------------------------
+
+
+def cogvideox_dit_rules(config) -> Rules:
+    rules: Rules = {
+        "patch_embed/kernel": ("patch_embed.proj.weight",
+                               patch_conv(config.patch_size, config.in_channels)),
+        "patch_embed/bias": ("patch_embed.proj.bias", t_id),
+        "text_proj/kernel": ("patch_embed.text_proj.weight", t_dense),
+        "text_proj/bias": ("patch_embed.text_proj.bias", t_id),
+        "final_norm/scale": ("norm_final.weight", t_id),
+        "final_norm/bias": ("norm_final.bias", t_id),
+        "norm_out_linear/kernel": ("norm_out.linear.weight", t_dense),
+        "norm_out_linear/bias": ("norm_out.linear.bias", t_id),
+        "norm_out/scale": ("norm_out.norm.weight", t_id),
+        "norm_out/bias": ("norm_out.norm.bias", t_id),
+        "final_proj/kernel": ("proj_out.weight", t_dense),
+        "final_proj/bias": ("proj_out.bias", t_id),
+    }
+    for i in (1, 2):
+        rules[f"time_embedding/linear_{i}/kernel"] = (
+            f"time_embedding.linear_{i}.weight", t_dense)
+        rules[f"time_embedding/linear_{i}/bias"] = (
+            f"time_embedding.linear_{i}.bias", t_id)
+    for i in range(config.depth):
+        bp, hp = f"blocks_{i}", f"transformer_blocks.{i}"
+        for nz in ("norm1", "norm2"):
+            rules[f"{bp}/{nz}/linear/kernel"] = (f"{hp}.{nz}.linear.weight", t_dense)
+            rules[f"{bp}/{nz}/linear/bias"] = (f"{hp}.{nz}.linear.bias", t_id)
+            rules[f"{bp}/{nz}/norm/scale"] = (f"{hp}.{nz}.norm.weight", t_id)
+            rules[f"{bp}/{nz}/norm/bias"] = (f"{hp}.{nz}.norm.bias", t_id)
+        for proj in ("to_q", "to_k", "to_v"):
+            rules[f"{bp}/attn/{proj}/kernel"] = (f"{hp}.attn1.{proj}.weight", t_dense)
+            rules[f"{bp}/attn/{proj}/bias"] = (f"{hp}.attn1.{proj}.bias", t_id)
+        rules[f"{bp}/attn/to_out/kernel"] = (f"{hp}.attn1.to_out.0.weight", t_dense)
+        rules[f"{bp}/attn/to_out/bias"] = (f"{hp}.attn1.to_out.0.bias", t_id)
+        for qk in ("norm_q", "norm_k"):
+            rules[f"{bp}/attn/{qk}/scale"] = (f"{hp}.attn1.{qk}.weight", t_id)
+            rules[f"{bp}/attn/{qk}/bias"] = (f"{hp}.attn1.{qk}.bias", t_id)
+        rules[f"{bp}/ff_in/kernel"] = (f"{hp}.ff.net.0.proj.weight", t_dense)
+        rules[f"{bp}/ff_in/bias"] = (f"{hp}.ff.net.0.proj.bias", t_id)
+        rules[f"{bp}/ff_out/kernel"] = (f"{hp}.ff.net.2.weight", t_dense)
+        rules[f"{bp}/ff_out/bias"] = (f"{hp}.ff.net.2.bias", t_id)
+    return rules
+
+
+# ----------------------------------------------------------------------
+# CogVideoX 3D causal VAE (diffusers' AutoencoderKLCogVideoX)
+# ----------------------------------------------------------------------
+
+
+def _causal_res_rules(prefix: str, hf_prefix: str) -> Rules:
+    rules = {}
+    for ours, theirs, tr in [
+        ("norm1/scale", "norm1.weight", t_id),
+        ("norm1/bias", "norm1.bias", t_id),
+        ("conv1/conv/kernel", "conv1.conv.weight", t_conv3d),
+        ("conv1/conv/bias", "conv1.conv.bias", t_id),
+        ("norm2/scale", "norm2.weight", t_id),
+        ("norm2/bias", "norm2.bias", t_id),
+        ("conv2/conv/kernel", "conv2.conv.weight", t_conv3d),
+        ("conv2/conv/bias", "conv2.conv.bias", t_id),
+        ("shortcut/kernel", "conv_shortcut.weight", t_conv3d_1x1_dense),
+        ("shortcut/bias", "conv_shortcut.bias", t_id),
+    ]:
+        rules[f"{prefix}/{ours}"] = (f"{hf_prefix}.{theirs}", tr)
+    return rules
+
+
+def _causal_conv_rules(ours: str, hf: str) -> Rules:
+    return {f"{ours}/conv/kernel": (f"{hf}.conv.weight", t_conv3d),
+            f"{ours}/conv/bias": (f"{hf}.conv.bias", t_id)}
+
+
+def causal_vae_encoder_rules(config) -> Rules:
+    rules: Rules = {
+        "norm_out/scale": ("encoder.norm_out.weight", t_id),
+        "norm_out/bias": ("encoder.norm_out.bias", t_id),
+    }
+    rules.update(_causal_conv_rules("conv_in", "encoder.conv_in"))
+    rules.update(_causal_conv_rules("conv_out", "encoder.conv_out"))
+    n = len(config.block_out_channels)
+    for bi in range(n):
+        for li in range(config.layers_per_block):
+            rules.update(_causal_res_rules(
+                f"down_{bi}_{li}", f"encoder.down_blocks.{bi}.resnets.{li}"))
+        if bi < n - 1:
+            rules.update(_causal_conv_rules(
+                f"down_{bi}_ds", f"encoder.down_blocks.{bi}.downsamplers.0"))
+    rules.update(_causal_res_rules("mid_0", "encoder.mid_block.resnets.0"))
+    rules.update(_causal_res_rules("mid_1", "encoder.mid_block.resnets.1"))
+    return rules
+
+
+def causal_vae_decoder_rules(config) -> Rules:
+    """vdx's decoder norms are plain GroupNorms; each maps onto diffusers'
+    spatial norm's ``norm_layer`` at the output, as vdx's rule."""
+    rules: Rules = {
+        "norm_out/scale": ("decoder.norm_out.norm_layer.weight", t_id),
+        "norm_out/bias": ("decoder.norm_out.norm_layer.bias", t_id),
+    }
+    rules.update(_causal_conv_rules("conv_in", "decoder.conv_in"))
+    rules.update(_causal_conv_rules("conv_out", "decoder.conv_out"))
+    rules.update(_causal_res_rules("mid_0", "decoder.mid_block.resnets.0"))
+    rules.update(_causal_res_rules("mid_1", "decoder.mid_block.resnets.1"))
+    n = len(config.block_out_channels)
+    for bi in range(n):
+        for li in range(config.layers_per_block + 1):
+            rules.update(_causal_res_rules(
+                f"up_{bi}_{li}", f"decoder.up_blocks.{bi}.resnets.{li}"))
+        if bi < n - 1:
+            rules.update(_causal_conv_rules(
+                f"up_{bi}_us", f"decoder.up_blocks.{bi}.upsamplers.0"))
+    return rules
+
+
+# ----------------------------------------------------------------------
 # application
 # ----------------------------------------------------------------------
 
 _COMPONENT_RULES = {"vae": vae_rules, "text": clip_text_rules,
-                    "tdec": temporal_decoder_rules, "vision": clip_vision_rules}
-# the "unet" component's rules by its config's class (vdx's and the port's
-# config classes share their names)
+                    "tdec": temporal_decoder_rules, "vision": clip_vision_rules,
+                    "t5": t5_encoder_rules, "vae_enc": causal_vae_encoder_rules,
+                    "vae_dec": causal_vae_decoder_rules}
+# the denoiser's rules by its config's class (vdx's and the port's config
+# classes share their names)
 _DENOISER_RULES = {"UNetMotionConfig": unet_motion_rules,
                    "UNet3DConfig": unet3d_rules,
-                   "SVDUNetConfig": svd_unet_rules}
+                   "SVDUNetConfig": svd_unet_rules,
+                   "LatteConfig": latte_dit_rules,
+                   "CogVideoXConfig": cogvideox_dit_rules}
 
 
 def flatten_params(params: Mapping, prefix: str = "") -> Dict[str, object]:
@@ -582,10 +829,12 @@ def state_from_rules(flat_params: Mapping[str, np.ndarray],
 
 def params_from_jax(flat_params: Mapping[str, np.ndarray], component: str,
                     config) -> Dict[str, torch.Tensor]:
-    """Flattened vdx parameters of one component ("unet": UNetMotion,
-    UNet3D or UNetSpatioTemporal by ``config``'s class; "vae", "text",
-    "tdec" for SVD's temporal decoder, "vision" for the CLIP vision tower)
-    -> the port module's state_dict (fp32 torch tensors, diffusers names)."""
-    rules = (_DENOISER_RULES[type(config).__name__] if component == "unet"
+    """Flattened vdx parameters of one component ("unet" or "dit": the
+    denoiser by ``config``'s class, UNetMotion, UNet3D, UNetSpatioTemporal,
+    LatteDiT or CogVideoXDiT; "vae", "text", "tdec" for SVD's temporal
+    decoder, "vision" for the CLIP vision tower, "t5", "vae_enc" and
+    "vae_dec" for CogVideoX's T5 and causal VAE) -> the port module's
+    state_dict (fp32 torch tensors, diffusers names)."""
+    rules = (_DENOISER_RULES[type(config).__name__] if component in ("unet", "dit")
              else _COMPONENT_RULES[component])
     return state_from_rules(flat_params, rules(config))

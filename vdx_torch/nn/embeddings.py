@@ -5,6 +5,8 @@
 * :class:`TimestepEmbedding` — linear -> SiLU -> linear (320 -> 1280).
 * :func:`sinusoidal_positional_encoding` — interleaved sin/cos PE the
   motion modules add over the frame axis.
+* :func:`rope_3d` — CogVideoX's 3D rotary tables over a (F, H, W) token
+  grid, identity rows for a leading text segment.
 """
 
 from __future__ import annotations
@@ -48,6 +50,36 @@ def sinusoidal_positional_encoding(seq_len: int, dim: int,
     pe[:, 0::2] = torch.sin(position * div_term)
     pe[:, 1::2] = torch.cos(position * div_term)
     return pe
+
+
+def rope_3d(frames: int, height: int, width: int, head_dim: int,
+            theta: float = 10000.0, text_len: int = 0, device=None):
+    """3D rotary tables over a (F, H, W) token grid, CogVideoX-style: the
+    head dim splits into t (D/4), h (3D/8) and w (the rest) sub-bands.
+    -> fp32 (cos, sin), each [text_len + F*H*W, D/2]; the leading
+    ``text_len`` rows are identity (cos 1, sin 0), so one table serves the
+    joint [text ++ video] sequence."""
+    dim_t = head_dim // 4
+    dim_h = head_dim * 3 // 8
+    dim_w = head_dim - dim_t - dim_h
+
+    def axis_angles(n, d):
+        inv = 1.0 / theta ** (torch.arange(0, d, 2, dtype=torch.float32,
+                                           device=device) / d)
+        return torch.arange(n, dtype=torch.float32, device=device)[:, None] \
+            * inv[None, :]
+
+    at = axis_angles(frames, dim_t)[:, None, None, :]
+    ah = axis_angles(height, dim_h)[None, :, None, :]
+    aw = axis_angles(width, dim_w)[None, None, :, :]
+    grid = torch.cat([
+        at.expand(frames, height, width, dim_t // 2),
+        ah.expand(frames, height, width, dim_h // 2),
+        aw.expand(frames, height, width, dim_w // 2)],
+        dim=-1).reshape(frames * height * width, head_dim // 2)
+    if text_len:
+        grid = torch.cat([grid.new_zeros(text_len, head_dim // 2), grid])
+    return torch.cos(grid), torch.sin(grid)
 
 
 class TimestepEmbedding(nn.Module):

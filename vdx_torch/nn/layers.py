@@ -28,6 +28,18 @@ class Dense(nn.Linear):
         return F.linear(x.to(cd), self.weight.to(cd), b)
 
 
+class LayerNormF32(nn.LayerNorm):
+    """LayerNorm computed in fp32, output in the input's dtype."""
+
+    def __init__(self, dim: int, eps: float = 1e-5,
+                 policy: Policy = DEFAULT_POLICY):
+        super().__init__(dim, eps=eps, dtype=policy.param_dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight.float(),
+                            self.bias.float(), self.eps).to(x.dtype)
+
+
 class Conv2d(nn.Conv2d):
     """Conv over channels-last [B, H, W, C] input and output. The input is
     handed to the conv as an NCHW view with channels-last strides, so no

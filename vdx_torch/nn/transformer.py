@@ -13,25 +13,12 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from vdx_torch.core.dtypes import DEFAULT_POLICY, Policy
 from vdx_torch.nn.attention import Attention, FeedForward
-from vdx_torch.nn.layers import Conv2d
+from vdx_torch.nn.layers import Conv2d, LayerNormF32
 from vdx_torch.nn.resnet import GroupNormModule
-
-
-class LayerNormF32(nn.LayerNorm):
-    """LayerNorm computed in fp32, output in the input's dtype."""
-
-    def __init__(self, dim: int, eps: float = 1e-5,
-                 policy: Policy = DEFAULT_POLICY):
-        super().__init__(dim, eps=eps, dtype=policy.param_dtype)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x.float(), self.normalized_shape, self.weight.float(),
-                            self.bias.float(), self.eps).to(x.dtype)
 
 
 class BasicTransformerBlock(nn.Module):

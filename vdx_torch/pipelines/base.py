@@ -11,12 +11,15 @@ pipeline (port of vdx/pipelines/base.py).
 :class:`VideoDiffusionPipeline` is vdx's family base: the request loop
 around a pluggable denoiser, through vdx's hooks (``denoiser_cls``,
 ``n_denoiser_cond``, ``guidance_always``, ``latent_channels``,
-``_prepare_cond``, ``_decode_raw``, ``_denoiser_rules``,
-``_conversion_rules``) and the port's ``default_scheduler`` and
-``_component_factories`` (the components beside the denoiser).
-:class:`AnimateDiffPipeline` (UNetMotion), ``TextToVideoMSPipeline``
-(UNet3D, pipelines/text_to_video_ms.py) and ``SVDImg2VidPipeline``
-(pipelines/svd.py) subclass it.
+``_prepare_cond``, ``_decode_raw`` with its options (CogVideoX's
+``trim``), ``_denoiser_rules``, ``_conversion_rules``,
+``denoiser_param_key``, ``supports_frame_shards``, ``supports_context``)
+and the port's ``default_scheduler`` and ``_component_factories`` (the
+components beside the denoiser). :class:`AnimateDiffPipeline`
+(UNetMotion), ``TextToVideoMSPipeline`` (UNet3D,
+pipelines/text_to_video_ms.py), ``SVDImg2VidPipeline`` (pipelines/svd.py),
+``LattePipeline`` (pipelines/latte.py) and ``CogVideoXPipeline``
+(pipelines/cogvideox.py) subclass it.
 
 Text encode -> initial noise (vdx's ``jax.random.normal(PRNGKey(seed))``,
 computed by vdx_torch.core.rng on the pipeline's device; one draw per
@@ -91,7 +94,8 @@ class PABConfig:
 def pab_refresh_flags(pab: PABConfig, i: int, num_steps: int) -> dict:
     """Step i's refresh flag per attention type (Python bools, from the
     global step index): ``hot or i % interval == 0``, hot in the warm-up
-    and cool-down; None for an interval of 1. Step 0 always refreshes."""
+    and cool-down; None for an interval of 1. Step 0 always refreshes.
+    Each denoiser reads the types it has ("joint": CogVideoX's)."""
     hot = i < pab.warmup_steps or i >= num_steps - pab.cooldown_steps
 
     def flag(interval):
@@ -99,7 +103,8 @@ def pab_refresh_flags(pab: PABConfig, i: int, num_steps: int) -> dict:
 
     return {"spatial": flag(pab.spatial_interval),
             "temporal": flag(pab.temporal_interval),
-            "cross": flag(pab.cross_interval)}
+            "cross": flag(pab.cross_interval),
+            "joint": flag(pab.joint_interval)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -252,6 +257,13 @@ class VideoDiffusionPipeline:
     guidance_always = False
     #: the sampler when the constructor names none
     default_scheduler = "euler"
+    #: the denoiser's component name (checkpoints, LoRA)
+    denoiser_param_key = "unet"
+    #: whether the denoiser could run frame-sharded (ROADMAP item 14)
+    supports_frame_shards = True
+    #: whether the denoiser's frame axis can be cut into context windows
+    #: (not for DiTs whose attention entangles every frame with the text)
+    supports_context = True
 
     def __init__(
         self,
@@ -283,9 +295,16 @@ class VideoDiffusionPipeline:
         if pab is not None and skip is not None:
             raise ValueError("pab and skip are both turbo modes with their own "
                              "denoise programs — pick one")
+        if context is not None and not self.supports_context:
+            raise ValueError(f"{type(self).__name__} denoiser packs frames "
+                             "into tokens — temporal context windows do not "
+                             "apply")
         if context is not None and pab is not None:
             raise ValueError("context windows and PAB are incompatible: PAB's "
                              "attention caches are sized per model call")
+        if frame_shards > 1 and not self.supports_frame_shards:
+            raise ValueError(f"{type(self).__name__} denoiser has no "
+                             "frame-sharded (ring) execution mode")
         if frame_shards != 1 or mesh is not None or seq_impl != "ulysses":
             raise NotImplementedError(
                 "frame sharding (frame_shards, seq_impl, mesh) comes with "
@@ -502,7 +521,7 @@ class VideoDiffusionPipeline:
         the pristine tensors are kept, so ``unload_lora`` and
         ``set_lora_scale`` are exact. Returns the conversion report for
         a torch state dict."""
-        component = component or "unet"
+        component = component or self.denoiser_param_key
         targets = tuple(targets or L.DEFAULT_TARGETS)
         module = self._components()[component]
         report = None
@@ -524,7 +543,7 @@ class VideoDiffusionPipeline:
     def set_lora_scale(self, scale: float, component: str = None) -> None:
         """Re-merge the active adapter at a new scale, from the pristine
         weights (scales never accumulate rounding)."""
-        component = component or "unet"
+        component = component or self.denoiser_param_key
         if component not in self._lora_active:
             raise ValueError(f"no LoRA active on {component!r}")
         self._lora_active[component]["scale"] = float(scale)
@@ -533,7 +552,7 @@ class VideoDiffusionPipeline:
 
     def unload_lora(self, component: str = None) -> None:
         """Detach the adapter: the pristine tensors go back, bit for bit."""
-        component = component or "unet"
+        component = component or self.denoiser_param_key
         if component not in self._lora_active:
             raise ValueError(f"no LoRA active on {component!r}")
         self._lora_restore(component)

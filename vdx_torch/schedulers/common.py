@@ -84,6 +84,15 @@ def timesteps_trailing(num_train: int, num_steps: int) -> np.ndarray:
     return np.round(num_train - i * (num_train / num_steps)).astype(np.int32) - 1
 
 
+def dynamic_cfg_schedule(guidance_scale: float, num_steps: int) -> np.ndarray:
+    """CogVideoX's cosine^5 dynamic-CFG ramp from 1 to ``guidance_scale``:
+    g_i = 1 + (g - 1) * (1 - cos(pi * ((i+1)/N)^5)) / 2. -> [N] fp32, a
+    per-step guidance schedule."""
+    i = np.arange(1, num_steps + 1, dtype=np.float64)
+    ramp = 1.0 - np.cos(np.pi * (i / num_steps) ** 5.0)
+    return (1.0 + (guidance_scale - 1.0) * ramp / 2.0).astype(np.float32)
+
+
 def on_device(cls: Type, device, **fields):
     """A sampler's table NamedTuple with each numpy field moved to
     ``device`` as a tensor of the same dtype (one copy each, made when the

@@ -231,6 +231,7 @@ class BatchingGenerationService(GenerationService):
         self._queue: list = []
         self._cv = threading.Condition()
         self._worker: Optional[threading.Thread] = None
+        self._stopping = False
         if autostart:
             self.start_worker()
 
@@ -240,6 +241,18 @@ class BatchingGenerationService(GenerationService):
         if self._worker is None:
             self._worker = threading.Thread(target=self._drain_loop, daemon=True)
             self._worker.start()
+
+    def stop_worker(self) -> None:
+        """Stop draining once the batch in flight ends; queued requests wait
+        for the next :meth:`start_worker`. The worker's hold on the service,
+        and so on its pipeline, goes with it."""
+        if self._worker is None:
+            return
+        with self._cv:
+            self._stopping = True
+            self._cv.notify_all()
+        self._worker.join()
+        self._worker, self._stopping = None, False
 
     # -- public ---------------------------------------------------------
     def generate(self, request: dict) -> dict:
@@ -266,8 +279,10 @@ class BatchingGenerationService(GenerationService):
     def _drain_loop(self):
         while True:
             with self._cv:
-                while not self._queue:
+                while not self._queue and not self._stopping:
                     self._cv.wait()
+                if self._stopping:
+                    return
                 # window: let compatible requests accumulate
                 self._cv.wait(timeout=self.batch_window_s)
                 key = self._static_key(self._queue[0]["request"])
@@ -364,6 +379,7 @@ class JobManager:
         self._lock = threading.Lock()
         self._queue: list = []
         self._cv = threading.Condition(self._lock)
+        self._closed = False
         self.journal_dir = Path(journal_dir) if journal_dir else None
         if self.journal_dir is not None:
             self.journal_dir.mkdir(parents=True, exist_ok=True)
@@ -473,11 +489,23 @@ class JobManager:
             return None
         return job["result"]
 
+    def close(self) -> None:
+        """Stop the worker once the job it runs ends; queued jobs stay
+        queued (and journaled, for a later manager to recover). The
+        worker's hold on the services, and so on their pipelines, goes
+        with it."""
+        with self._cv:
+            self._closed = True
+            self._cv.notify_all()
+        self._worker.join()
+
     def _drain(self):
         while True:
             with self._cv:
-                while not self._queue:
+                while not self._queue and not self._closed:
                     self._cv.wait()
+                if self._closed:
+                    return
                 job = self._queue.pop(0)
             job["status"] = "running"
             svc = self.services[job["kind"]]
@@ -620,7 +648,9 @@ class GenerationServer:
         self._thread.start()
 
     def stop(self) -> None:
+        """Stop serving and the job worker (see :meth:`JobManager.close`)."""
         self.httpd.shutdown()
         self.httpd.server_close()
         if self._thread:
             self._thread.join(timeout=5)
+        self.jobs.close()
