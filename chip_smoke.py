@@ -183,6 +183,21 @@ Phases, one flushed line each with its seconds:
      its seconds split by CUDA events into the T5 encode with its host
      round trip, the denoise loop and the decode, and the peaks of the
      encode, the denoise loop and the decode
+ 27. training: vdx_torch.parallel.train on AnimateDiff's UNetMotion at
+     SD-1.5 width (bf16, seeded random weights), after phase 26's
+     pipeline is freed: two synthetic 20-frame videos written as PNGs and
+     read back through vdx_torch.data (clips of 16 at 256x256, batch 2),
+     VAE-encoded on the card (K2/K3); (a) one batch (UNet batch 16) and
+     key: loss and whole gradient with the kernels (K1 5 a forward at
+     [16,1024,8,40], K2 and K3; their autograd Functions' backward) against
+     plain_versions("K1", "K2/K3") (loss rel 1e-2, gradient rel-L2 5e-2);
+     forward + backward of the Functions against SDPA and group_norm; (b)
+     four make_train_step(remat=True, grad_accum=2, ema_decay=0.999) steps
+     at constant lr and (c) four rank-8 LoRA steps, the first of each a
+     warm-up: s a step, peak memory, every loss, the weights' and the
+     adapter's movement, the launches in the forwards (hooks on the main
+     thread), the recomputes (the rest of the step's) and the Functions'
+     backward
 Phase 3 also checks the wgmma + TMA pipeline at its edges (Sq and Skv off
 the tiles, Skv under one tile, q/k/v as views into one fused projection,
 rows whose every scaled logit is below -46; every form at each head-dim
@@ -220,8 +235,8 @@ import time
 from functools import partial
 
 # a hang ends with a stack trace well before any outer time limit (1200 s
-# for the whole run); the run, build included, takes about six minutes
-# on an H100
+# for the whole run); the run, build included, takes about eight and a
+# half minutes on an H100
 HANG_BUDGET_S = 900
 ROOT = pathlib.Path(__file__).resolve().parent
 # H100 SXM published peaks at 700 W: bf16 dense tensor cores,
@@ -330,9 +345,28 @@ COG_PROMPT = "a sailboat gliding across a calm lake at dawn"
 COG_CALL = dict(num_frames=49, height=480, width=720, guidance_scale=6.0,
                 decode_spatial_tile=40, seed=1234, output_type="np")
 COG_K1_PER_CALL = 30
-# pipeline keyword overrides by family ("ms", "svd", "latte", "cog"); a
-# CPU rehearsal
-# gives tiny configs, the fp32 policy and device="cpu"
+# phase 27: training at full width, AnimateDiff's motion-module training
+# setting (Guo et al. 2023, arXiv:2307.04725: WebVid clips of 16 frames at
+# 256x256): two synthetic videos of 20 frames written as PNGs, clips of
+# 16, UNet batch 16 a micro-batch; K1 at level 0 only (1024 tokens: 2 down
+# and 3 up sites), level 1 (256 tokens) eager
+TRAIN_VIDEOS, TRAIN_VIDEO_FRAMES, TRAIN_SIZE, TRAIN_CLIP = 2, 20, 256, 16
+TRAIN_BATCH = 2
+TRAIN_STEPS = 4  # each kind; the first is a warm-up, not timed
+TRAIN_LR = 1e-4  # constant: every step moves the weights
+TRAIN_EMA = 0.999
+TRAIN_LORA_RANK = 8
+TRAIN_K1_PER_CALL = 5
+# the step's K1 and GN shapes, for the Functions' forward + backward
+TRAIN_ATTN_SHAPE = (16, 1024, 8, 40)
+TRAIN_GN_SHAPES = ((16, 1024, 320), (1, 16384, 320))
+# the kernel path against the plain versions on one batch and key: the
+# loss within 1e-2 relative, the whole gradient within 5e-2 rel-L2 (bf16
+# forward and backward; PERF.md section 2's bar for a UNet evaluation)
+TRAIN_LOSS_REL, TRAIN_GRAD_REL = 1e-2, 5e-2
+# pipeline keyword overrides by family ("ms", "svd", "latte", "cog",
+# "train"); a CPU rehearsal gives tiny configs, the fp32 policy and
+# device="cpu"
 FAMILY_BUILD: dict = {}
 
 
@@ -446,10 +480,14 @@ def check_kernels(dev):
         # the plain version over one head)
         ("K1", (32, 1024, 16, 72), "latte", "spatial self-attn", False),
         ("K1", (2, 17776, 30, 64), "cog", "joint attention", "head"),
+        # a training micro-batch at 256x256 (phase 27): UNet batch 16
+        ("K1", (16, 1024, 8, 40), "train", "level-0 self-attn, a training "
+         "micro-batch", False),
     )
     path_label = {"batch": "512x512", "serve": "512x512",
                   "ms": "ModelScope 256x256", "svd": "SVD 576x1024",
-                  "latte": "Latte-XL 512x512", "cog": "CogVideoX-2B 480x720"}
+                  "latte": "Latte-XL 512x512", "cog": "CogVideoX-2B 480x720",
+                  "train": "training 256x256"}
     static = dict(exp_impl="staticmax")
     for kname, (B, S, H, D), path, site, one_slice in attn_cases:
         t0 = time.time()
@@ -500,7 +538,8 @@ def check_kernels(dev):
         rows.append(dict(
             name=f"{kname} {label} [{B},{S},{H},{D}] ({site}, "
                  f"{path_label.get(path, f'{path}x{path}')})",
-            kernel=kname, path=path, stage="denoise", route="cuda",
+            kernel=kname, path=path,
+            stage="step" if path == "train" else "denoise", route="cuda",
             source="vdx_torch/csrc/flash_attention_sm90.cu",
             replaces=("vdx/kernels/flash_attention.py:204" if kname == "K1"
                       else "vdx/kernels/flash_attention.py:135"),
@@ -618,6 +657,13 @@ def check_kernels(dev):
         ("K3", (1, 5324800, 128), bf16, 1e-6, True,
          "causal VAE decoder 128-channel GN-SiLU, 52 frames x 320x320", "cog",
          "decode"),
+        # a training micro-batch at 256x256 (phase 27): the level-0 resnet
+        # GN at UNet batch 16, the level-0 motion GN over its 16 frames
+        ("K2", (16, 1024, 320), bf16, 1e-5, True,
+         "UNet level-0 resnet GN-SiLU, a training micro-batch", "train",
+         "step"),
+        ("K3", (1, 16384, 320), bf16, 1e-6, False,
+         "level-0 motion-module GN, a training micro-batch", "train", "step"),
     )
     for kname, (B, S, C), dtype, eps, silu, where, path, stage in gn_cases:
         t0 = time.time()
@@ -964,8 +1010,9 @@ def check_temporal_edges(dev):
 @contextlib.contextmanager
 def plain_versions(*kernels: str):
     """Swap the plain PyTorch versions in for the named kernels (of K1,
-    K2/K3, K4) on CUDA tensors (the references of phases 6 and 9 only; the
-    package itself has no such path)."""
+    K2/K3, K4) on CUDA tensors (the references of phases 6, 9 and 27 only;
+    the package itself has no such path). Under grad the plain versions
+    are differentiated by autograd itself, GroupNormFn included."""
     import torch
 
     import vdx_torch.ops.attention as A
@@ -996,14 +1043,25 @@ def plain_versions(*kernels: str):
                                      with_silu=with_silu)
         return y.reshape(x.shape)
 
-    swaps = {"K1": (A, "flash_attention_dt", attn),
-             "K2/K3": (G, "group_norm_silu_cuda", gn),
-             "K4": (A, "flash_attention", flash_attention_plain)}
-    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in
-             (swaps[k] for k in kernels)]
+    class GNPlain:
+        """GroupNormFn's stand-in under grad: the plain version, which
+        autograd differentiates itself (phase 27's plain path)."""
+
+        backward_calls = 0  # none: autograd runs the plain version's own
+
+        @staticmethod
+        def apply(x, scale, bias, num_groups, eps, with_silu):
+            return gn(x, num_groups, scale, bias, eps, with_silu)
+
+    swaps = {"K1": [(A, "flash_attention_dt", attn)],
+             "K2/K3": [(G, "group_norm_silu_cuda", gn),
+                       (G, "GroupNormFn", GNPlain)],
+             "K4": [(A, "flash_attention", flash_attention_plain)]}
+    saved = [(mod, attr, getattr(mod, attr)) for k in kernels
+             for mod, attr, _ in swaps[k]]
     for k in kernels:
-        mod, attr, fn = swaps[k]
-        setattr(mod, attr, fn)
+        for mod, attr, fn in swaps[k]:
+            setattr(mod, attr, fn)
     try:
         yield
     finally:
@@ -3252,6 +3310,359 @@ def run_cogvideox(gn: dict) -> tuple:
     return path, summary
 
 
+# ----------------------------------------------------------------------
+# phase 27: training at full width
+# ----------------------------------------------------------------------
+def write_train_clips(root: pathlib.Path) -> None:
+    """TRAIN_VIDEOS videos of TRAIN_VIDEO_FRAMES frames, TRAIN_SIZE
+    square, as PNGs under ``root/<video>/frames/`` (the grid-search
+    artifact layout): seeded colour gradients that drift from frame to
+    frame, so consecutive frames differ as a video's do."""
+    import numpy as np
+
+    from vdx_torch.io.png import encode_png
+
+    rng = np.random.default_rng(0)
+    yy, xx = np.mgrid[0:TRAIN_SIZE, 0:TRAIN_SIZE].astype(np.float32) / TRAIN_SIZE
+    for v in range(TRAIN_VIDEOS):
+        d = root / f"video_{v}" / "frames"
+        d.mkdir(parents=True, exist_ok=True)
+        freq = rng.uniform(1.0, 4.0, (3, 2))
+        phase = rng.uniform(0, 2 * np.pi, 3)
+        for f in range(TRAIN_VIDEO_FRAMES):
+            img = np.stack([0.5 + 0.5 * np.sin(2 * np.pi * (freq[c, 0] * xx
+                                                            + freq[c, 1] * yy)
+                                               + phase[c] + 0.2 * f)
+                            for c in range(3)], axis=-1)
+            (d / f"frame_{f:03d}.png").write_bytes(
+                encode_png((img * 255).astype(np.uint8)))
+
+
+def fn_backward_calls() -> dict:
+    """How often each kernel's autograd Function ran its backward."""
+    import vdx_torch.kernels.flash_attention as KA
+    import vdx_torch.ops.groupnorm as G
+
+    return {"K1 Fn": KA.FlashAttentionDtFn.backward_calls,
+            "K4 Fn": KA.FlashAttentionFn.backward_calls,
+            "GN Fn": G.GroupNormFn.backward_calls}
+
+
+def forward_calls(unet):
+    """Forward hooks on ``unet`` recording the launch counters around each
+    call made on the main thread -> (list of per-call launch dicts, remove
+    function). On the card autograd runs the backward, and so remat's
+    recompute, on its own device thread, whose calls are left out (a
+    recompute may also end early, once it has rebuilt what the backward
+    needs, without its post-hook): a step's launches less its forwards'
+    are its recomputes'."""
+    import threading
+
+    calls, start = [], {}
+    main = threading.main_thread()
+
+    def pre(module, args):
+        if threading.current_thread() is main:
+            start["c"] = read_counters()
+
+    def post(module, args, out):
+        if threading.current_thread() is main:
+            now = read_counters()
+            calls.append({k: now[k] - start["c"][k] for k in now})
+
+    h1 = unet.register_forward_pre_hook(pre)
+    h2 = unet.register_forward_hook(post)
+    return calls, lambda: (h1.remove(), h2.remove())
+
+
+def add_counts(dicts, keys=("K1", "K2", "K3", "K4")) -> dict:
+    return {k: sum(d[k] for d in dicts) for k in keys}
+
+
+def global_rel(a: dict, b: dict) -> float:
+    """sqrt(sum ||a - b||^2) / sqrt(sum ||b||^2) over tensors by name, in
+    fp32."""
+    num = den = 0.0
+    for n, y in b.items():
+        num += float(((a[n].detach().float() - y.float()) ** 2).sum())
+        den += float((y.float() ** 2).sum())
+    return math.sqrt(num / den)
+
+
+def run_training(dev) -> tuple:
+    """Phase 27: vdx_torch.parallel.train on AnimateDiff's UNetMotion at
+    SD-1.5 width (bf16, seeded random weights), on clips read back through
+    vdx_torch.data and encoded on the card: (a) one batch's loss and whole
+    gradient with the kernels against the plain versions, (b) full steps
+    (remat, grad_accum=2, EMA) and (c) rank-8 LoRA steps, timed after a
+    warm-up step, with the K1/K2/K3 launches in the forwards, the
+    recomputes and the Functions' backward. -> (path record, summary)"""
+    import torch
+    import torch.nn.functional as F
+
+    import vdx_torch.kernels.flash_attention as KA
+    import vdx_torch.ops.groupnorm as G
+    from vdx_torch.core import rng
+    from vdx_torch.core.dtypes import BF16_POLICY
+    from vdx_torch.core.lora import init_lora
+    from vdx_torch.data import (FrameFolderDataset, VideoClipLoader,
+                                encode_clips_to_latents, prefetch_to_device)
+    from vdx_torch.parallel import train as TT
+    from vdx_torch.pipelines import AnimateDiffPipeline
+    from vdx_torch.schedulers.common import ScheduleConfig, make_alphas_cumprod
+
+    t_phase = time.time()
+    held = free_card("train")
+    root = SCRATCH / "train_clips"
+    write_train_clips(root)
+    pipe = AnimateDiffPipeline.with_random_params(
+        seed=0, **({"policy": BF16_POLICY} | FAMILY_BUILD.get("train", {})))
+    unet = pipe.unet
+    n_params = sum(p.numel() for p in unet.parameters())
+    ds = FrameFolderDataset(root, clip_frames=TRAIN_CLIP,
+                            size=(TRAIN_SIZE, TRAIN_SIZE))
+    loader = VideoClipLoader(ds, batch_size=TRAIN_BATCH, seed=0)
+    ctx1 = pipe.encode_prompt(PROMPT)[1:].clone()  # an ordinary tensor
+    ctx = ctx1.expand((TRAIN_BATCH,) + tuple(ctx1.shape[1:])).contiguous()
+
+    # the clips through the loader, copied to the card and encoded there
+    torch.cuda.synchronize()
+    t0 = time.time()
+    reset_counters()
+    batches = [encode_clips_to_latents(pipe.vae, b["pixels"])
+               for b in prefetch_to_device(iter(loader), dev)]
+    torch.cuda.synchronize()
+    enc = read_counters()
+    encode_s = time.time() - t0
+    lat_shape, n_batches = tuple(batches[0].shape), len(batches)
+    log(f"[train] UNet {n_params} params {unet.policy.param_dtype}; data: "
+        f"{len(ds)} videos, {ds.num_clips()} clips of {TRAIN_CLIP} at "
+        f"{TRAIN_SIZE}x{TRAIN_SIZE} as PNGs, {len(batches)} batches of "
+        f"{TRAIN_BATCH} read, copied and VAE-encoded in {encode_s:.2f}s "
+        f"(latents {lat_shape} {batches[0].dtype}; encode launches "
+        f"K2 {enc['K2']} K3 {enc['K3']} K1 {enc['K1']})")
+    if not (enc["K2"] and enc["K3"]) or enc["K1"] != 0 or not all(
+            torch.isfinite(b).all() for b in batches):
+        raise SystemExit(f"[train] the encode: launches {enc}, or latents "
+                         "not finite")
+
+    # (a) one batch (B = 1: UNet batch 16) and one key: loss and gradient
+    # with the kernels, then with the plain versions
+    sched = ScheduleConfig()
+    acp = torch.as_tensor(make_alphas_cumprod(sched), device=dev)
+    params = dict(unet.named_parameters())
+
+    def loss_and_grads():
+        noisy, t, noise = TT.draw(acp, sched.num_train_timesteps,
+                                  rng.prng_key(0), batches[0][:1])
+        torch.cuda.synchronize()
+        reset_counters()
+        fn0 = fn_backward_calls()
+        t0 = time.time()
+        loss = torch.mean((unet(noisy, t, ctx[:1]).float() - noise.float()) ** 2)
+        torch.cuda.synchronize()
+        t_fwd, fwd = time.time() - t0, read_counters()
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(
+            params.values(), torch.autograd.grad(loss, list(params.values()),
+                                                 allow_unused=True))]
+        torch.cuda.synchronize()
+        t_bwd = time.time() - t0 - t_fwd
+        bwd = {k: n - fwd[k] for k, n in read_counters().items()}
+        fns = {k: n - fn0[k] for k, n in fn_backward_calls().items()}
+        return (loss.detach(), dict(zip(params, grads)), fwd, bwd, fns,
+                t_fwd, t_bwd)
+
+    torch.cuda.reset_peak_memory_stats()
+    loss_k, grads_k, fwd, bwd, fns, t_fwd, t_bwd = loss_and_grads()
+    peak_grad = torch.cuda.max_memory_allocated()
+    with plain_versions("K1", "K2/K3"):
+        loss_p, grads_p, fwd_p, _, fns_p, t_fwd_p, t_bwd_p = loss_and_grads()
+    loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    grad_rel = global_rel(grads_k, grads_p)
+    log(f"[train] gradient check, one batch (UNet batch {TRAIN_CLIP}) and "
+        f"key: loss {float(loss_k):.6f} (kernels) / {float(loss_p):.6f} "
+        f"(plain) rel {loss_rel:.3e} (bar {TRAIN_LOSS_REL}), gradient rel-L2 "
+        f"{grad_rel:.3e} (bar {TRAIN_GRAD_REL}); kernel path: forward "
+        f"{t_fwd * 1e3:.1f} ms launches {add_counts([fwd])}, backward "
+        f"{t_bwd * 1e3:.1f} ms launches {add_counts([bwd])}, Functions' "
+        f"backward {fns}; peak {peak_grad / 2**30:.2f} GiB; plain path: "
+        f"forward {t_fwd_p * 1e3:.1f} ms backward {t_bwd_p * 1e3:.1f} ms "
+        f"launches {add_counts([fwd_p])} Functions {fns_p}")
+    gn_fwd = fwd["K2"] + fwd["K3"]
+    zeros = dict.fromkeys(("K1", "K2", "K3", "K4"), 0)
+    if (fwd["K1"] != TRAIN_K1_PER_CALL or not (fwd["K2"] and fwd["K3"])
+            or add_counts([bwd]) != zeros
+            or fns != {"K1 Fn": TRAIN_K1_PER_CALL, "K4 Fn": 0, "GN Fn": gn_fwd}
+            or add_counts([fwd_p]) != zeros
+            or fns_p != dict.fromkeys(fns_p, 0)):
+        raise SystemExit(f"[train] gradient check launches: forward {fwd} "
+                         f"backward {bwd} Functions {fns}; plain path "
+                         f"{fwd_p} {fns_p}")
+    if not (loss_rel <= TRAIN_LOSS_REL and grad_rel <= TRAIN_GRAD_REL):
+        raise SystemExit(f"[train] the kernel path's loss (rel {loss_rel:.3e}) "
+                         f"or gradient (rel-L2 {grad_rel:.3e}) is off the "
+                         "plain path's")
+    check = dict(loss_kernels=float(loss_k), loss_plain=float(loss_p),
+                 loss_rel=loss_rel, grad_rel_l2=grad_rel,
+                 forward_ms=t_fwd * 1e3, backward_ms=t_bwd * 1e3,
+                 plain_forward_ms=t_fwd_p * 1e3, plain_backward_ms=t_bwd_p * 1e3,
+                 forward_launches=add_counts([fwd]), functions_backward=fns,
+                 max_memory_allocated=peak_grad)
+    del grads_k, grads_p, loss_k, loss_p
+    torch.cuda.empty_cache()
+
+    # the Functions alone at the step's shapes: forward + backward against
+    # the library's (SDPA; F.group_norm + F.silu)
+    def fwd_bwd(fn, *shapes, dtype=torch.bfloat16):
+        ins = [torch.randn(s, device=dev, dtype=dtype, requires_grad=True)
+               for s in shapes]
+        g = torch.randn_like(fn(*ins))
+        return cuda_ms(lambda: torch.autograd.grad(fn(*ins), ins, g), reps=5)
+
+    qs = TRAIN_ATTN_SHAPE
+    (rs, rC), (ms_, mC) = ((s[:2], s[2]) for s in TRAIN_GN_SHAPES)
+    a, r_, m_ = (str(list(x)).replace(" ", "") for x in (qs,) + TRAIN_GN_SHAPES)
+    fb = {f"K1 {a}": fwd_bwd(
+              lambda q, k, v: KA.flash_attention_dt(
+                  q, k, v, scale=qs[-1] ** -0.5, block_q=4096, block_k=1024,
+                  exp_impl="staticmax"), qs, qs, qs),
+          f"SDPA {a}": fwd_bwd(
+              lambda q, k, v: F.scaled_dot_product_attention(
+                  q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                  scale=qs[-1] ** -0.5), qs, qs, qs),
+          f"K2 GN-SiLU {r_}": fwd_bwd(
+              lambda x, w, b: G.group_norm_silu(x, 32, w, b, 1e-5),
+              (*rs, rC), (rC,), (rC,)),
+          f"group_norm+silu {r_}": fwd_bwd(
+              lambda x, w, b: F.silu(F.group_norm(x.transpose(1, 2), 32, w, b,
+                                                  1e-5)),
+              (*rs, rC), (rC,), (rC,)),
+          f"K3 GN {m_}": fwd_bwd(
+              lambda x, w, b: G.group_norm(x, 32, w, b, 1e-6),
+              (*ms_, mC), (mC,), (mC,)),
+          f"group_norm {m_}": fwd_bwd(
+              lambda x, w, b: F.group_norm(x.transpose(1, 2), 32, w, b, 1e-6),
+              (*ms_, mC), (mC,), (mC,))}
+    log("[train] forward + backward ms (CUDA events, median of 5; the "
+        "kernels' backward is the plain version's VJP): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in fb.items()))
+    torch.cuda.empty_cache()
+
+    def run_steps(step, state, label, every_gn_graphed):
+        """TRAIN_STEPS steps of ``step``; the first is a warm-up. -> (state,
+        losses, s a timed step, peak, launches by stage over the timed
+        steps). ``every_gn_graphed``: every GroupNorm's input or weights
+        require grad (a full step), so each runs through GroupNormFn; a
+        LoRA step's first GroupNorms, before any adapted projection, see
+        none and launch their kernel directly."""
+        key = rng.prng_key(1)
+        losses, secs = [], []
+        calls, remove = forward_calls(unet)
+        try:
+            for i in range(TRAIN_STEPS):
+                if i == 1:
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    reset_counters()
+                    calls.clear()
+                    fn0 = fn_backward_calls()
+                key, sub = rng.split(key)
+                t0 = time.time()
+                state, metrics = step(state, {"latents": batches[i % len(batches)],
+                                              "context": ctx}, sub)
+                losses.append(float(metrics["loss"]))  # synchronises
+                torch.cuda.synchronize()
+                secs.append(time.time() - t0)
+        finally:
+            remove()
+        total = add_counts([read_counters()])
+        fns = {k: n - fn0[k] for k, n in fn_backward_calls().items()}
+        fwd = add_counts(calls)
+        by_stage = {"forward": fwd,
+                    "recompute": {k: total[k] - fwd[k] for k in total},
+                    "functions_backward": fns, "step": total}
+        timed = secs[1:]
+        peak = torch.cuda.max_memory_allocated()
+        log(f"[train] {label}: losses {losses}, s a step {timed} (warm-up "
+            f"{secs[0]:.3f}s), mean {sum(timed) / len(timed):.3f}s, peak "
+            f"{peak} ({peak / 2**30:.2f} GiB); launches over "
+            f"{len(timed)} steps ({len(calls)} forwards): forward "
+            f"{by_stage['forward']} recompute {by_stage['recompute']} "
+            f"Functions' backward {fns}")
+        if not all(math.isfinite(x) for x in losses):
+            raise SystemExit(f"[train] {label}: losses not finite {losses}")
+        n = TRAIN_K1_PER_CALL * len(calls)
+        gn = fwd["K2"] + fwd["K3"]
+        re = by_stage["recompute"]
+        if (fwd["K1"] != n or re["K1"] != n or fns["K1 Fn"] != n
+                or not (fwd["K2"] and fwd["K3"])
+                or not 0 < fns["GN Fn"] <= gn
+                or (every_gn_graphed and fns["GN Fn"] != gn)
+                or not 0 < re["K2"] + re["K3"] <= gn or fns["K4 Fn"] != 0):
+            raise SystemExit(f"[train] {label}: launches {by_stage}, expected "
+                             f"K1 {n} in the forwards, the recomputes and the "
+                             "Function's backward, GN in each")
+        return state, losses, timed, peak, by_stage
+
+    # (b) full steps: remat, grad_accum 2 (two micro-batches of UNet batch
+    # 16), EMA, constant lr
+    before = {n: p.detach().clone() for n, p in params.items()}
+    opt = TT.make_optimizer(TRAIN_LR)
+    state, opt = TT.init_train_state(unet, optimizer=opt, ema=True)
+    step = TT.make_train_step(unet, opt, remat=True, grad_accum=2,
+                              ema_decay=TRAIN_EMA)
+    state, losses, timed, peak, by_stage = run_steps(
+        step, state, "full steps (remat, grad_accum=2, EMA 0.999)", True)
+    w_rel = global_rel(params, before)
+    ema_rel = global_rel(state.ema_params, before)
+    log(f"[train] weights moved rel-L2 {w_rel:.3e}, the EMA {ema_rel:.3e} "
+        f"from the initial weights")
+    if not (w_rel > 0 and ema_rel > 0):
+        raise SystemExit("[train] the full steps did not move the weights")
+    full = dict(losses=losses, s_per_step=timed, max_memory_allocated=peak,
+                launches=by_stage, weights_rel_change=w_rel,
+                ema_rel_change=ema_rel)
+    del state, step, opt, before
+    torch.cuda.empty_cache()
+
+    # (c) rank-8 LoRA steps: the base frozen, through functional_call
+    before = {n: p.detach().clone() for n, p in params.items()}
+    adapter = init_lora(unet.state_dict(), rank=TRAIN_LORA_RANK, seed=0,
+                        rules=pipe._conversion_rules()["unet"][0])
+    flat = {n: t.to(dev).requires_grad_()
+            for n, t in TT.flatten_adapter(adapter).items()}
+    a0 = {n: t.detach().clone() for n, t in flat.items()}
+    lopt = TT.make_optimizer(TRAIN_LR)
+    lstate, lopt = TT.init_train_state(unet, flat, optimizer=lopt)
+    lstate, llosses, ltimed, lpeak, lby_stage = run_steps(
+        TT.make_lora_train_step(unet, lopt, remat=True), lstate,
+        f"rank-{TRAIN_LORA_RANK} LoRA steps over {len(adapter)} sites (remat)",
+        False)
+    b_norm = math.sqrt(sum(float((t.float() ** 2).sum())
+                           for n, t in lstate.params.items() if n.endswith("#b")))
+    a_rel = global_rel({n: t for n, t in lstate.params.items() if n.endswith("#a")},
+                       {n: t for n, t in a0.items() if n.endswith("#a")})
+    base_same = all(torch.equal(p, before[n]) for n, p in params.items())
+    log(f"[train] adapter moved: ||b|| {b_norm:.3e} (0 at init), a rel-L2 "
+        f"{a_rel:.3e}; base weights unchanged {base_same}")
+    if not (b_norm > 0 and a_rel > 0 and base_same):
+        raise SystemExit("[train] LoRA steps: the adapter did not move or the "
+                         "base did")
+    lora = dict(losses=llosses, s_per_step=ltimed, max_memory_allocated=lpeak,
+                launches=lby_stage, b_norm=b_norm, a_rel_change=a_rel,
+                sites=len(adapter))
+    del lstate, flat, a0, before, batches, pipe, unet, params
+    log(f"[train] phase {time.time() - t_phase:.1f}s")
+    path = dict(secs=sum(timed), by_stage={"step": by_stage["step"],
+                                           "encode": enc},
+                peak=peak, frames=len(timed) * TRAIN_BATCH * TRAIN_CLIP,
+                steps=len(timed), chunks=n_batches)
+    summary = dict(gradient_check=check, fwd_bwd_ms=fb, full=full, lora=lora,
+                   encode_s=encode_s, encode_launches=enc, params=n_params,
+                   held_before=held)
+    return path, summary
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(HANG_BUDGET_S, exit=True)
     t_start = time.time()
@@ -3499,6 +3910,11 @@ def main() -> int:
     paths["cog"], cogvideox = run_cogvideox(family_gn)
     torch.cuda.empty_cache()
 
+    # 27. training at full width: the gradient check against the plain
+    # versions, full steps (remat, grad_accum, EMA) and LoRA steps
+    paths["train"], train = run_training(dev)
+    torch.cuda.empty_cache()
+
     # Counts are per kernel at every shape, within the row's stage of its
     # path's run: the denoise loop of a timed call (per step), its VAE
     # encode and decode (per chunk), the GN dispatch at 2560 channels, the
@@ -3514,7 +3930,7 @@ def main() -> int:
     def row_launches(r):
         n = runs[r["path"]][r["stage"]][r["kernel"]]
         out = {"launches": n, "path": r["path"], "stage": r["stage"]}
-        if r["stage"] == "denoise":
+        if r["stage"] in ("denoise", "step"):
             out["launches_per_step"] = n / paths[r["path"]]["steps"]
         elif r["stage"] in ("decode", "encode"):
             d = paths[r["path"]]
@@ -3549,6 +3965,7 @@ def main() -> int:
         "latte": {k: paths["latte"][k]
                   for k in ("rel_l2_unet_eval", "params", "held_before")},
         "cogvideox": cogvideox,
+        "train": train,
         # every flash attention counter (kernels.flash_attention
         # .launch_counts) with its launches at phase 3's edges
         "edge_launches": edge_launches,

@@ -8,6 +8,7 @@
     python3 scripts/profile_torch_port.py --family svd          # 576x1024, EDM
     python3 scripts/profile_torch_port.py --family latte        # 512x512, DDIM
     python3 scripts/profile_torch_port.py --family cogvideox    # 49f 480x720
+    python3 scripts/profile_torch_port.py --train               # 16f 256x256
 
 Builds the family's full-width pipeline (bf16, random weights from seed
 0), warms it up, then traces with ``torch.profiler`` one denoising step of
@@ -21,7 +22,12 @@ and CLIP vision). Latte (the DiT): 2 x 16 frames at 512x512, an 8-frame
 SD VAE decode chunk. CogVideoX-2B: 2 x 13 latent frames at 480x720 with
 226 T5 tokens (v-prediction DDIM), the causal decode of the whole clip in
 spatial tiles of 40 latent pixels (49 frames), and the offloaded T5-XXL
-encode of one prompt pair (its weights to the card and back). Prints, per phase, the wall time, the summed
+encode of one prompt pair (its weights to the card and back). With
+``--train`` (AnimateDiff, ``chip_smoke.py`` phase 27's cell): one full
+training step (batch 2 of 16 frames at 256x256 in two micro-batches,
+remat, EMA; vdx_torch.parallel.train), one micro-batch's forward and
+backward alone (no remat, no update), and one rank-8 LoRA step. Prints,
+per phase, the wall time, the summed
 device-kernel time by category and the device idle share (1 - kernel
 time / wall time), then the top kernels by device time. The categories
 are read off the kernel names.
@@ -191,6 +197,52 @@ def phases_of(args, torch):
     return [(step, "denoise step"), (decode, "decode chunk")] + extra
 
 
+def train_phases(torch):
+    """AnimateDiff's training cell (chip_smoke.py phase 27): seeded
+    latents [2, 16, 32, 32, 4], the prompt's context, a full step, one
+    micro-batch's forward + backward, and a LoRA step."""
+    from vdx_torch.core import rng
+    from vdx_torch.core.dtypes import BF16_POLICY
+    from vdx_torch.core.lora import init_lora
+    from vdx_torch.parallel import train as TT
+    from vdx_torch.pipelines import AnimateDiffPipeline
+    from vdx_torch.schedulers.common import ScheduleConfig, make_alphas_cumprod
+
+    pipe = AnimateDiffPipeline.with_random_params(seed=0, policy=BF16_POLICY)
+    unet, dev = pipe.unet, pipe.device
+    lat = rng.key_normal(rng.prng_key(3), (2, 16, 32, 32, 4), dev,
+                         dtype=torch.bfloat16)
+    ctx1 = pipe.encode_prompt("a corgi walking on the beach")[1:].clone()
+    batch = {"latents": lat, "context": ctx1.expand(2, *ctx1.shape[1:])}
+    opt = TT.make_optimizer(1e-4)
+    state = {"full": TT.init_train_state(unet, optimizer=opt, ema=True)[0]}
+    full = TT.make_train_step(unet, opt, remat=True, grad_accum=2,
+                              ema_decay=0.999)
+    adapter = init_lora(unet.state_dict(), rank=8, seed=0,
+                        rules=pipe._conversion_rules()["unet"][0])
+    flat = {n: t.to(dev).requires_grad_()
+            for n, t in TT.flatten_adapter(adapter).items()}
+    state["lora"] = TT.init_train_state(unet, flat, optimizer=opt)[0]
+    lora = TT.make_lora_train_step(unet, opt, remat=True)
+    acp = torch.as_tensor(make_alphas_cumprod(ScheduleConfig()), device=dev)
+    params = list(unet.parameters())
+
+    def full_step():
+        state["full"] = full(state["full"], batch, rng.prng_key(1))[0]
+
+    def fwd_bwd():
+        noisy, t, noise = TT.draw(acp, 1000, rng.prng_key(1), lat[:1])
+        loss = torch.mean((unet(noisy, t, batch["context"][:1]).float()
+                           - noise.float()) ** 2)
+        torch.autograd.grad(loss, params, allow_unused=True)
+
+    def lora_step():
+        state["lora"] = lora(state["lora"], batch, rng.prng_key(1))[0]
+
+    return [(full_step, "train step"), (fwd_bwd, "micro-batch fwd+bwd"),
+            (lora_step, "lora step")]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--family", default="animatediff",
@@ -203,6 +255,8 @@ def main() -> int:
                     help="default ddim (text families), edm (SVD)")
     ap.add_argument("--video2video", action="store_true",
                     help="AnimateDiff: also trace one VAE encode chunk")
+    ap.add_argument("--train", action="store_true",
+                    help="AnimateDiff's training cell at 256x256 instead")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
     import torch
@@ -216,8 +270,9 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True).stdout.strip(),
         flush=True)
 
-    with torch.inference_mode():
-        phases = phases_of(args, torch)
+    mode = torch.enable_grad() if args.train else torch.inference_mode()
+    with mode:
+        phases = train_phases(torch) if args.train else phases_of(args, torch)
         for _ in range(2):  # warm-up: kernel build, cuDNN plans, allocator
             for fn, _ in phases:
                 fn()

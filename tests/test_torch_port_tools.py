@@ -25,11 +25,14 @@ what the new packages import.
    EventLog's JSON lines and echo lines agree but for the timestamps.
 3. The commands: --help lists them; generate --tiny --device cpu writes
    the frames of a direct port call and its GIF; serve builds a batching
-   service exactly when --batch-window-ms > 0; train and convert return
-   2. lib() builds and loads once under eight concurrent first calls.
+   service exactly when --batch-window-ms > 0; train and convert refuse
+   a call without their required arguments (exit 2; both run in
+   tests/test_torch_port_data.py). lib() builds and loads once under
+   eight concurrent first calls.
    Importing vdx_torch.serving, .tracing, .utils, .cli, the pipelines
-   (the family base, ModelScope, SVD), their new models and the
-   experiment CLIs loads no jax, flax, vdx, Pillow or pandas;
+   (the family base, ModelScope, SVD), their new models, the experiment
+   CLIs, the trainer (.parallel.train) and the loader (.data.loader)
+   loads no jax, flax, vdx, Pillow or pandas;
    vdx_torch.analysis and the analysis CLIs (07, 08) load pandas only.
 """
 
@@ -322,9 +325,10 @@ def test_cli_loader_lock_and_imports(tmp_path, capsys, monkeypatch):
     listed = capsys.readouterr().out
     for cmd in ("generate", "serve", "analyze", "train", "convert"):
         assert cmd in listed
-    for cmd in ("train", "convert"):
-        assert cli.main([cmd, "--data", "x"]) == 2
-        assert "ROADMAP Queue 1 item 14" in capsys.readouterr().err
+    for cmd, needs in (("train", "--data"), ("convert", "--family")):
+        with pytest.raises(SystemExit) as e:
+            cli.main([cmd])
+        assert e.value.code == 2 and needs in capsys.readouterr().err
     assert cli.main(["nope"]) == 2
 
     out = tmp_path / "gen"
@@ -373,7 +377,9 @@ def test_cli_loader_lock_and_imports(tmp_path, capsys, monkeypatch):
                     "vdx_torch.experiments.exp02_architecture_inspection",
                     "vdx_torch.experiments.exp03_trace_forward_pass",
                     "vdx_torch.experiments.exp05_grid_search_ablation",
-                    "vdx_torch.experiments.exp06_measure_grid_search"]) == []
+                    "vdx_torch.experiments.exp06_measure_grid_search",
+                    "vdx_torch.parallel", "vdx_torch.parallel.train",
+                    "vdx_torch.data", "vdx_torch.data.loader"]) == []
     assert _loaded(["vdx_torch.experiments.exp07_analyze_grid_search",
                     "vdx_torch.experiments.exp08_analyze_comprehensive"]) \
         == ["pandas"]

@@ -66,12 +66,14 @@ def init_lora(state: Mapping[str, torch.Tensor], rank: int = 4,
     return tree
 
 
-@torch.no_grad()
 def merge_lora(state: Mapping[str, torch.Tensor], lora: dict,
                scale: float = 1.0) -> Dict[str, torch.Tensor]:
     """``{key: W + scale * (a @ b)^T}`` for every site of ``lora``: fp32
     math on W's device, cast back to W's dtype. Only the adapted keys are
-    returned."""
+    returned. A pure function that autograd follows: gradients of the
+    merged weights reach ``a`` and ``b`` (LoRA training, vdx's
+    ``make_lora_train_step``); inference callers run it under
+    ``torch.no_grad()``."""
     out = {}
     s = torch.tensor(float(scale), dtype=torch.float32)
     for p, site in lora.items():
@@ -88,6 +90,21 @@ def merge_lora(state: Mapping[str, torch.Tensor], lora: dict,
         delta = (a @ b).T
         out[p] = (W.float() + s.to(W.device) * delta).to(W.dtype)
     return out
+
+
+def save_lora(lora: dict, path) -> None:
+    """An adapter tree to a peft-keyed ``.safetensors`` file that
+    ``load_lora`` (and :func:`convert_lora_checkpoint`) reads back exactly:
+    ``<stem>.lora_A.weight`` = a^T [r, in], ``<stem>.lora_B.weight`` =
+    b^T [out, r], alpha left at r (so a = A^T)."""
+    from vdx_torch.core.safetensors_io import save_file
+
+    tensors = {}
+    for p, site in lora.items():
+        stem = p[: -len(".weight")]
+        tensors[f"{stem}.lora_A.weight"] = site["a"].detach().T.contiguous()
+        tensors[f"{stem}.lora_B.weight"] = site["b"].detach().T.contiguous()
+    save_file(tensors, path, metadata={"format": "pt"})
 
 
 # ----------------------------------------------------------------------

@@ -25,6 +25,18 @@ vdx's video, and the CPU and the card give the same noise.
 * Normal: sqrt(2) * erfinv(u), with XLA's fp32 ``ErfInv`` polynomial
   (M. Giles, "Approximating the erfinv function"), ported below, so the
   normals follow the same fp32 operations as vdx's.
+* bf16 normal (the training step's noise under bf16 weights): a type
+  with fewer than 8 mantissa bits draws 8 bits an element, the low byte
+  of b1 ^ b2; u = (byte >> 1 | bits of 1.0) - 1, times the span
+  1 - lo (2.0 once rounded to bf16), plus lo = nextafter(-1, 0) in bf16
+  (-1 + 2^-8), all exact; erfinv in fp32 rounded to bf16, then times
+  sqrt(2) rounded to bf16, rounded once more. 256 values in all.
+* randint in [lo, hi) (int32, ``jax.random.randint``): the key splits,
+  each half draws 32 bits an element (hi_bits, lo_bits); with span =
+  hi - lo (1 when hi <= lo) and m = ((2^16 mod span)^2 mod 2^32) mod
+  span, the draw is lo + ((hi_bits mod span) * m + lo_bits mod span) mod
+  span, every product and sum wrapping at 32 bits as JAX's uint32
+  arithmetic.
 
 The integer arithmetic runs on int64 tensors masked to 32 bits (torch's
 uint32 support is thin): every intermediate stays below 2^63.
@@ -138,9 +150,31 @@ def _erfinv_f32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() == 1.0, x * torch.finfo(torch.float32).max, p * x)
 
 
+def _key_normal_bf16(key: tuple, shape: Sequence[int],
+                     device: Union[str, torch.device]) -> torch.Tensor:
+    """``jax.random.normal(key, shape, bfloat16)`` (see the module
+    docstring): 8 bits an element."""
+    bits = key_bits(key, shape, device) & 0xFF
+    one = (bits >> 1) | 0x3F80  # a bf16 in [1, 2)
+    f = one.to(torch.int16).view(torch.bfloat16).float() - 1.0
+    lo = torch.nextafter(torch.tensor(-1.0, dtype=torch.bfloat16),
+                         torch.tensor(0.0, dtype=torch.bfloat16)).float()
+    span = (1.0 - lo).to(torch.bfloat16).float()
+    u = torch.maximum(f * span.to(device) + lo.to(device), lo.to(device))
+    e = _erfinv_f32(u.to(torch.bfloat16).float()).to(torch.bfloat16).float()
+    sqrt2 = torch.tensor(math.sqrt(2.0)).to(torch.bfloat16).float()
+    return (e * sqrt2.to(device)).to(torch.bfloat16)
+
+
 def key_normal(key: tuple, shape: Sequence[int],
-               device: Union[str, torch.device] = "cpu") -> torch.Tensor:
-    """``jax.random.normal(key, shape, float32)`` on ``device``."""
+               device: Union[str, torch.device] = "cpu",
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``jax.random.normal(key, shape, dtype)`` on ``device``, dtype
+    float32 or bfloat16 (JAX's own bf16 stream, not fp32 cast down)."""
+    if dtype == torch.bfloat16:
+        return _key_normal_bf16(key, shape, device)
+    if dtype != torch.float32:
+        raise TypeError(f"key_normal draws float32 or bfloat16, got {dtype}")
     bits = key_bits(key, shape, device)
     mant = ((bits >> 9) | 0x3F800000).to(torch.int32)
     f = mant.view(torch.float32) - 1.0
@@ -149,6 +183,20 @@ def key_normal(key: tuple, shape: Sequence[int],
     u = torch.clamp_min(f * span + lo, _LO)
     return torch.tensor(math.sqrt(2.0), dtype=torch.float32, device=device) \
         * _erfinv_f32(u)
+
+
+def randint(key: tuple, shape: Sequence[int], minval: int, maxval: int,
+            device: Union[str, torch.device] = "cpu") -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` (int32 bounds,
+    int32 result; see the module docstring) on ``device``."""
+    k1, k2 = split(key)
+    hi_bits = key_bits(k1, shape, device)
+    lo_bits = key_bits(k2, shape, device)
+    span = (maxval - minval) & _M32 if maxval > minval else 1
+    mult = ((((1 << 16) % span) ** 2) & _M32) % span
+    off = ((hi_bits % span) * mult) & _M32
+    off = ((off + lo_bits % span) & _M32) % span
+    return (minval + off).to(torch.int32)
 
 
 def normal(seed: int, shape: Sequence[int],

@@ -193,6 +193,23 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} at launch: {msg}")
 
 
+def check_not_detached(what: str, *tensors) -> None:
+    """Raise before a launch whose output autograd would lose: a kernel
+    writes through ``data_ptr()`` into a tensor with no ``grad_fn``, so
+    with grad enabled and an input that requires grad the caller has to
+    go through the kernel's ``torch.autograd.Function`` (whose forward
+    runs with grad disabled), or it gets no gradient at all."""
+    import torch
+
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: an input requires grad, and the kernel's output would "
+            "be silently detached from the graph; call it through its "
+            "autograd Function (the public wrappers do), or under "
+            "torch.no_grad()")
+
+
 def stream_ptr(device) -> int:
     import torch
 

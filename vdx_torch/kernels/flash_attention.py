@@ -58,6 +58,14 @@ at D % 8 != 0, a mode of the mma.sync template
 :func:`counter_for` names each route's counter. For a CPU tensor each
 computes its plain PyTorch version, which the tests and ``chip_smoke.py``
 hold the kernel against.
+
+Under autograd (grad enabled, an input that requires grad) K1, K1', K5
+and K4 run through :class:`FlashAttentionDtFn` and
+:class:`FlashAttentionFn`: the kernel is the forward, the plain version's
+VJP the backward (vdx gives its flash kernels none). No launch site hands
+autograd a detached output: each raises under grad when an input requires
+grad (``_lib.check_not_detached``), which a Function's forward, run with
+grad disabled, never meets. The temporal kernels (K6-K9) have no backward.
 """
 
 from __future__ import annotations
@@ -335,6 +343,7 @@ def _launch_sm90(q, k, v, *, scale: float, exp_impl, kernel: str,
     exp (the running max, mult on the fp32 scores); :data:`SM90_FORMS` for
     the other forms (mult folded into q; ``period`` is fastexp2's and
     noexp's statistics period in keys, a multiple of 128)."""
+    _lib.check_not_detached(what, q, k, v)
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
     B, Sq, H, D = q.shape
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -357,6 +366,7 @@ def _launch_forms(q, k, v, *, scale: float, exp_impl: str,
     ``csrc/flash_attention_runmax.cu``) or the SIMT kernel (fp32,
     ``csrc/flash_attention_f32.cu``); ``period`` is fastexp2's and
     noexp's statistics period in keys (a multiple of 128)."""
+    _lib.check_not_detached(f"flash attention {exp_impl}", q, k, v)
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
     B, Sq, H, D = q.shape
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -391,17 +401,29 @@ def flash_attention_dt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     where :func:`counter_for` says: staticmax on the wgmma + TMA pipeline
     (K1) in ``launches``; every other launch in ``form_launches``, under
     :data:`FORM_KERNEL`'s name of its form on that pipeline and
-    :data:`TEMPLATE_KERNEL`'s off it. CPU: the plain version.
+    :data:`TEMPLATE_KERNEL`'s off it. With grad enabled and an input that
+    requires grad, the launch goes through :class:`FlashAttentionDtFn`
+    (the backward: the plain version's VJP). CPU: the plain version,
+    which autograd differentiates itself.
     """
     if exp_impl not in EXP_IMPLS:
         raise ValueError(f"unknown exp_impl {exp_impl!r}; vdx takes {EXP_IMPLS}")
     D = q.shape[-1]
     if D % 8:
         raise ValueError(f"flash_attention_dt takes D % 8 == 0, got D={D}")
-    period = min_pad_block(k.shape[1], block_k)
     if q.device.type == "cpu":
         return flash_attention_dt_plain(q, k, v, scale=scale,
                                         exp_impl=exp_impl, block_k=block_k)
+    if _needs_graph(q, k, v):
+        return FlashAttentionDtFn.apply(q, k, v, scale, exp_impl, block_k)
+    return _flash_dt_cuda(q, k, v, scale, exp_impl, block_k)
+
+
+def _flash_dt_cuda(q, k, v, scale: float, exp_impl: str,
+                   block_k: int) -> torch.Tensor:
+    """:func:`flash_attention_dt`'s launch on CUDA tensors, counted."""
+    D = q.shape[-1]
+    period = min_pad_block(k.shape[1], block_k)
     what = f"flash_attention_dt {exp_impl}"
     _check_operands(what, q, k, v)
     if not 8 <= D <= MAX_D:
@@ -439,11 +461,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (bf16, D % 8 == 0, D <= 256, aligned rows), counted in ``launches``;
     else the ``exp`` form of the mma.sync kernel (bf16; element loads when
     D % 8 != 0 or the rows are not aligned) or of the SIMT kernel (fp32),
-    counted apart in ``template_launches`` ("K4 template"). CPU: the plain
+    counted apart in ``template_launches`` ("K4 template"). With grad
+    enabled and an input that requires grad, through
+    :class:`FlashAttentionFn` (the plain version's VJP). CPU: the plain
     version.
     """
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale=scale)
+    if _needs_graph(q, k, v):
+        return FlashAttentionFn.apply(q, k, v, scale)
+    return _flash_cuda(q, k, v, scale)
+
+
+def _flash_cuda(q, k, v, scale: float) -> torch.Tensor:
+    """:func:`flash_attention`'s launch on CUDA tensors, counted."""
     _check_operands("K4", q, k, v)
     D = q.shape[-1]
     if not 1 <= D <= MAX_D:
@@ -461,6 +492,95 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 flash_attention.launches = 0
 flash_attention.template_launches = 0
+
+
+# --------------------------------------------- K1, K1', K5, K4 under grad --
+# vdx gives its flash kernels no VJP (jax.grad through them fails); its
+# trainer differentiates the XLA attention. Here the kernel runs the
+# forward and the backward is the VJP of the plain version the kernel is
+# held against, recomputed from the saved q, k, v (vdx's GroupNorm
+# pattern, ops/groupnorm.py). No hand-written backward kernel.
+
+# fp32 scores a backward slice may hold: 2^28 elements, 1 GiB (autograd
+# keeps a few S x S tensors of the plain version beside them)
+VJP_SLICE_SCORES = 1 << 28
+
+
+def _needs_graph(*ts: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def plain_vjp(plain, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              g: torch.Tensor, needs=(True, True, True)) -> list:
+    """The VJP of ``plain`` (a [B, S, H, D] attention of q, k, v) at g,
+    recomputed in (batch, head) slices whose fp32 scores stay under
+    :data:`VJP_SLICE_SCORES` elements. -> [dq, dk, dv], None where
+    ``needs`` is False; each in its input's dtype."""
+    B, Sq, H, _ = q.shape
+    per = max(1, VJP_SLICE_SCORES // (Sq * k.shape[1]))
+    hs = min(H, per)
+    bs = max(1, min(B, per // H)) if hs == H else 1
+    ins = (q, k, v)
+    grads = [torch.empty_like(t) if n else None for t, n in zip(ins, needs)]
+    for b in range(0, B, bs):
+        for h in range(0, H, hs):
+            idx = (slice(b, b + bs), slice(None), slice(h, h + hs))
+            with torch.enable_grad():
+                xs = [t[idx].detach().requires_grad_(bool(n))
+                      for t, n in zip(ins, needs)]
+                out = plain(*xs)
+                got = iter(torch.autograd.grad(
+                    out, [x for x in xs if x.requires_grad], g[idx]))
+            for gr in grads:
+                if gr is not None:
+                    gr[idx] = next(got)
+    return grads
+
+
+class FlashAttentionDtFn(torch.autograd.Function):
+    """:func:`flash_attention_dt` on CUDA under autograd: the forward is
+    the kernel launch, the backward :func:`plain_vjp` of
+    :func:`flash_attention_dt_plain` in the same form and period.
+    ``backward_calls`` counts backward passes."""
+
+    backward_calls = 0
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, exp_impl, block_k):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = dict(scale=scale, exp_impl=exp_impl, block_k=block_k)
+        return _flash_dt_cuda(q, k, v, scale, exp_impl, block_k)
+
+    @staticmethod
+    def backward(ctx, g):
+        FlashAttentionDtFn.backward_calls += 1
+        q, k, v = ctx.saved_tensors
+        plain = (lambda a, b, c:  # noqa: E731
+                 flash_attention_dt_plain(a, b, c, **ctx.args))
+        return (*plain_vjp(plain, q, k, v, g, ctx.needs_input_grad[:3]),
+                None, None, None)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """:func:`flash_attention` (K4) on CUDA under autograd: the kernel
+    forward, :func:`plain_vjp` of :func:`flash_attention_plain`."""
+
+    backward_calls = 0
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return _flash_cuda(q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        FlashAttentionFn.backward_calls += 1
+        q, k, v = ctx.saved_tensors
+        plain = (lambda a, b, c:  # noqa: E731
+                 flash_attention_plain(a, b, c, scale=ctx.scale))
+        return (*plain_vjp(plain, q, k, v, g, ctx.needs_input_grad[:3]),
+                None)
 
 
 # ------------------------------------------------- K6-K9: temporal sites --
@@ -537,7 +657,9 @@ def launch_temporal(mode: str, what: str, q: torch.Tensor, k: torch.Tensor,
     :data:`TEMPORAL_MODES`) on CUDA [P, F, H, D] operands (strided views,
     unit stride on D), on the kernel :func:`temporal_kernel_for` names; ->
     a contiguous output of q's shape and dtype. The range and dtype are
-    checked before the device."""
+    checked before the device; with grad enabled, inputs that require
+    grad raise (no temporal kernel has a backward)."""
+    _lib.check_not_detached(what, q, k, v)
     P, F, H, D = q.shape
     if not (1 <= F <= TEMPORAL_MAX_F and 1 <= D <= TEMPORAL_MAX_D):
         raise ValueError(f"{what}: the Hopper kernel takes 1..{TEMPORAL_MAX_F} "

@@ -245,6 +245,7 @@ def fused_group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     if x.device.type == "cpu":
         return group_norm_moments_plain(x, scale, bias, num_groups=num_groups,
                                         eps=eps, with_silu=with_silu)
+    _lib.check_not_detached("K2 fused_group_norm", x, scale, bias)
     if x.device.type != "cuda":
         raise ValueError(f"K2 runs on cuda or cpu tensors, got {x.device}")
     B, S, C = _check(x, scale, bias, num_groups)
@@ -278,6 +279,7 @@ def fused_group_norm_2phase(x: torch.Tensor, scale: torch.Tensor,
     if x.device.type == "cpu":
         return group_norm_moments_plain(x, scale, bias, num_groups=num_groups,
                                         eps=eps, with_silu=with_silu)
+    _lib.check_not_detached("K3 fused_group_norm_2phase", x, scale, bias)
     if x.device.type != "cuda":
         raise ValueError(f"K3 runs on cuda or cpu tensors, got {x.device}")
     B, S, C = _check(x, scale, bias, num_groups)

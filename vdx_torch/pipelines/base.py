@@ -569,8 +569,9 @@ class VideoDiffusionPipeline:
     def _lora_merge(self, component: str) -> None:
         state = self._lora_active[component]
         params = dict(self._components()[component].named_parameters())
-        merged = L.merge_lora({p: t.data for p, t in params.items()},
-                              state["adapter"], state["scale"])
+        with torch.no_grad():
+            merged = L.merge_lora({p: t.data for p, t in params.items()},
+                                  state["adapter"], state["scale"])
         for p, t in merged.items():
             params[p].data = t
 
