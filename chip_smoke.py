@@ -2,6 +2,7 @@
 """Chip smoke run of vdx_torch, the PyTorch/CUDA port, on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the root of a checkout, one GPU
+    python3 chip_smoke.py --only frame_shards   # build, then phase 28 alone
 
 Phases, one flushed line each with its seconds:
   1. environment: torch, CUDA, nvidia-smi name and power limit, the SM
@@ -198,6 +199,24 @@ Phases, one flushed line each with its seconds:
      adapter's movement, the launches in the forwards (hooks on the main
      thread), the recomputes (the rest of the step's) and the Functions'
      backward
+ 28. frame sharding (vdx_torch.parallel) on a one-rank NCCL mesh, the
+     sharded code at one rank against the local path (bf16, seeded random
+     weights): (a) UNetMotion at 16 frames 512x512, phase 6's input,
+     through make_frame_sharded_unet with seq_impl "ulysses" and "ring",
+     and ring with 14 real frames of 16 against the local 14-frame call
+     (rel-L2 5e-2 each; K1 as the local call, K2 + K3 one fewer per motion
+     module: the motion GN's statistics over the global frame axis run
+     eager, as vdx routes them to XLA; ms per evaluation, and ms of the
+     motion GroupNorms alone on K2/K3 and on the sharded statistics); (b)
+     the SVD UNet at 25 frames 576x1024 through make_frame_sharded_svd_unet
+     (the halo path; two GroupNorms per temporal resblock off the
+     kernels); (c) Latte-XL at 16 frames 512x512 with temporal_impl
+     "ulysses:frames";
+     (d) the timed 512 DDIM call local, then with the pipeline's denoiser
+     swapped for the one-rank Ulysses sharded apply (the pipeline's
+     frame-sharded path: shard-local decode, frames gathered): the first
+     step's eps against the local evaluation (5e-2), frames, seconds,
+     peak, launches by stage
 Phase 3 also checks the wgmma + TMA pipeline at its edges (Sq and Skv off
 the tiles, Skv under one tile, q/k/v as views into one fused projection,
 rows whose every scaled logit is below -46; every form at each head-dim
@@ -366,7 +385,8 @@ TRAIN_GN_SHAPES = ((16, 1024, 320), (1, 16384, 320))
 TRAIN_LOSS_REL, TRAIN_GRAD_REL = 1e-2, 5e-2
 # pipeline keyword overrides by family ("ms", "svd", "latte", "cog",
 # "train"); a CPU rehearsal gives tiny configs, the fp32 policy and
-# device="cpu"
+# device="cpu" ("frame_shards": {"pipe": those kwargs, "policy", "svd" and
+# "latte": the configs})
 FAMILY_BUILD: dict = {}
 
 
@@ -3663,7 +3683,312 @@ def run_training(dev) -> tuple:
     return path, summary
 
 
-def main() -> int:
+# phase 28: frame sharding on a one-rank NCCL mesh. The sharded code at one
+# rank against the local path: the all_to_alls, the ring, the halo and the
+# sharded GroupNorm run through torch.distributed as at n ranks
+FS_RAGGED = 14  # real frames of 16 in the ragged ring evaluation
+FS_SVD_T = 1.64  # SVD's first EDM step: c_noise = log(700) / 4
+FS_REPS = 3  # CUDA-event timings of each UNet evaluation (median)
+FS_GN_REPS = 10  # CUDA-event timings of a UNet call's motion GroupNorms
+# the SVD UNet's latent input (frames, h, w) and Latte's (b), (c)
+FS_SVD_LATENT = (25, 72, 128)
+FS_LATTE_LATENT = (16, 64, 64)
+
+
+def build_random(factory, dev, seed: int):
+    """A module built on the meta device, materialised on ``dev`` with the
+    pipelines' conv layout and seeded random weights (random_init_)."""
+    import torch
+
+    from vdx_torch.pipelines.base import _channels_last_, random_init_
+
+    with torch.device("meta"):
+        module = factory()
+    module = module.to_empty(device=dev).eval()
+    _channels_last_(module)
+    random_init_(module, torch.Generator(device=dev).manual_seed(seed))
+    return module
+
+
+def counted_eval(fn):
+    """``fn()`` under inference mode with the counters reset just before;
+    -> (output, launches)."""
+    import torch
+
+    with torch.inference_mode():
+        reset_counters()
+        out = fn()
+        launches = read_counters()
+    return out, launches
+
+
+def nonzero(launches: dict) -> dict:
+    return {k: n for k, n in launches.items() if n}
+
+
+def motion_gn_ms(unet, mesh, call) -> dict:
+    """The GroupNorms of a UNet call's motion modules alone, at the inputs
+    one ``call()`` gives them: ms for all of them (CUDA events, median of
+    FS_GN_REPS) on the kernels (K2/K3, the local route) and on the eager
+    statistics over the mesh's frames axis (the sharded route)."""
+    import torch
+
+    from vdx_torch.nn.temporal import TemporalTransformer3D
+
+    sites = []
+    hooks = [m.norm.register_forward_pre_hook(
+        lambda mod, args: sites.append((mod, args[0])))
+        for m in unet.modules() if isinstance(m, TemporalTransformer3D)]
+    try:
+        with torch.inference_mode():
+            call()
+    finally:
+        for h in hooks:
+            h.remove()
+    with torch.inference_mode():
+        ms = {"kernels": cuda_ms(lambda: [m(x) for m, x in sites],
+                                 FS_GN_REPS, 2)}
+        with mesh.bind():
+            ms["sharded"] = cuda_ms(lambda: [m(x, "frames") for m, x in sites],
+                                    FS_GN_REPS, 2)
+    ms["sites"] = len(sites)
+    return ms
+
+
+def check_sharded_launches(what: str, local: dict, sharded: dict,
+                           gn_off: int) -> None:
+    """The routing under frame sharding: every counter as the local call's,
+    but K2 + K3 fewer by ``gn_off`` (the frame-spanning GroupNorms take the
+    eager sharded statistics, as vdx's route to XLA)."""
+    want = dict(local)
+    k23 = local["K2"] + local["K3"] - gn_off
+    got23 = sharded["K2"] + sharded["K3"]
+    bad = {k: (sharded[k], n) for k, n in want.items()
+           if k not in ("K2", "K3") and sharded[k] != n}
+    if bad or got23 != k23:
+        raise SystemExit(f"[frame_shards] {what}: launches {sharded} against "
+                         f"the local call's {local}: expected the same but "
+                         f"K2 + K3 = {k23} ({gn_off} GroupNorms off the "
+                         f"kernels); differing: {bad}")
+
+
+def run_frame_shards(dev) -> tuple:
+    """Phase 28: frame sharding on a one-rank NCCL mesh (a process group of
+    one over a file under SCRATCH), at full width in bf16 with seeded random
+    weights. (a) UNetMotion at 16 frames 512x512, the CFG batch, phase 6's
+    first DDIM input: make_frame_sharded_unet with seq_impl "ulysses" and
+    "ring", and ring with 14 real frames of 16 (frames_valid) against the
+    local 14-frame call, each at 5e-2 rel-L2, K1 as the local call and K2 +
+    K3 one fewer per motion module, ms per evaluation and ms of the motion
+    GroupNorms alone on K2/K3 and on the sharded statistics; (b) the SVD UNet
+    at 25 frames 576x1024 through make_frame_sharded_svd_unet (the halo
+    path at one rank), K2 + K3 two fewer per temporal resblock; (c)
+    Latte-XL at 16 frames 512x512 with temporal_impl "ulysses:frames";
+    (d) the timed 512 DDIM call with the pipeline's denoiser swapped for the
+    one-rank Ulysses sharded apply (the pipeline's frame-sharded path:
+    shard-local decode, gathered frames), after a local timed call: the
+    first step's eps against the local evaluation's, frames, seconds, peak,
+    launches by stage. -> (the path's dict, the phase's summary)"""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from vdx_torch.core.dtypes import BF16_POLICY
+    from vdx_torch.models.dit import LatteConfig, LatteDiT
+    from vdx_torch.models.svd_unet import SVDUNetConfig, UNetSpatioTemporal
+    from vdx_torch.nn.resnet import TemporalResBlock
+    from vdx_torch.nn.temporal import TemporalTransformer3D
+    from vdx_torch.parallel.distributed import health_check, initialize
+    from vdx_torch.parallel.frame_parallel import (make_frame_sharded_denoiser,
+                                                   make_frame_sharded_svd_unet,
+                                                   make_frame_sharded_unet)
+    from vdx_torch.parallel.mesh import make_mesh
+    from vdx_torch.pipelines import AnimateDiffPipeline
+
+    t_phase = time.time()
+    held = free_card("frame_shards")
+    SCRATCH.mkdir(parents=True, exist_ok=True)
+    store = SCRATCH / "frame_shards_pg"
+    store.unlink(missing_ok=True)
+    # NCCL on the card (gloo in a CPU rehearsal)
+    initialize(f"file://{store}", 1, 0, device=dev.type,
+               timeout=datetime.timedelta(seconds=300))
+    fs = FAMILY_BUILD.get("frame_shards", {})
+    policy = fs.get("policy", BF16_POLICY)
+    summary = {"held_before": held}
+    try:
+        mesh = make_mesh(1, 1, 1)
+        log(f"[frame_shards] process group: {dist.get_backend()}, world "
+            f"{health_check()}, mesh {mesh.shape} on {mesh.device_type}")
+
+        # (a) UNetMotion at 512: ulysses, ring, ragged ring
+        pipe = AnimateDiffPipeline.with_random_params(
+            seed=0, **({"policy": policy} | fs.get("pipe", {})))
+        unet = pipe.unet
+        n_motion = sum(isinstance(m, TemporalTransformer3D) for m in unet.modules())
+        model_in, t_b, ctx = first_step_inputs(pipe)
+        eps_l, local = counted_eval(lambda: unet(model_in, t_b, ctx))
+        applies = {seq: make_frame_sharded_unet(mesh, seq_impl=seq)
+                   for seq in ("ulysses", "ring")}
+        rel, launches, ms = {}, {"local": local}, {}
+        for seq, apply in applies.items():
+            eps, launches[seq] = counted_eval(
+                lambda: apply(unet, model_in, t_b, ctx))
+            rel[seq] = rel_l2(eps, eps_l)
+            check_sharded_launches(f"UNetMotion {seq}", local, launches[seq],
+                                   n_motion)
+            del eps
+        mi = model_in[:, :FS_RAGGED]
+        eps_l14, local14 = counted_eval(lambda: unet(mi, t_b, ctx))
+        padded = torch.cat([mi, torch.zeros_like(model_in[:, FS_RAGGED:])], 1)
+        eps, launches["ring_ragged"] = counted_eval(
+            lambda: applies["ring"](unet, padded, t_b, ctx, frames_valid=FS_RAGGED))
+        rel["ring_ragged"] = rel_l2(eps[:, :FS_RAGGED], eps_l14)
+        finite = bool(torch.isfinite(eps).all())
+        check_sharded_launches("UNetMotion ring, 14 of 16 frames", local14,
+                               launches["ring_ragged"], n_motion)
+        del eps, eps_l14, padded
+        with torch.inference_mode():
+            ms["local"] = cuda_ms(lambda: unet(model_in, t_b, ctx), FS_REPS, 1)
+            for seq, apply in applies.items():
+                ms[seq] = cuda_ms(lambda: apply(unet, model_in, t_b, ctx),
+                                  FS_REPS, 1)
+        gn_ms = motion_gn_ms(unet, mesh, lambda: unet(model_in, t_b, ctx))
+        log(f"[frame_shards] (a) UNetMotion 16x512x512, CFG batch: rel_l2 "
+            f"against the local call ulysses {rel['ulysses']:.3e} ring "
+            f"{rel['ring']:.3e}; ring with {FS_RAGGED} of 16 frames against "
+            f"the local {FS_RAGGED}-frame call {rel['ring_ragged']:.3e} "
+            f"(bar 5e-2), finite={finite}; launches a UNet call "
+            f"{ {k: nonzero(d) for k, d in launches.items()} } "
+            f"({n_motion} motion GroupNorms off K2/K3); ms a UNet call "
+            f"(CUDA events, median of {FS_REPS}) {ms}; the {n_motion} motion "
+            f"GroupNorms alone, ms a UNet call (CUDA events, median of "
+            f"{FS_GN_REPS}): {gn_ms}")
+        if not finite or max(rel.values()) >= 5e-2:
+            raise SystemExit(f"[frame_shards] UNetMotion disagrees: {rel}")
+        summary["unet_motion"] = dict(rel_l2=rel, launches={
+            k: nonzero(d) for k, d in launches.items()},
+                                      ms_per_unet_call=ms, motion_modules=n_motion,
+                                      motion_gn_ms_per_unet_call=gn_ms)
+
+        # (d) the timed 512 DDIM call, local then on the one-rank mesh
+        secs_local, _, _, by_local, peak_local = timed_call(
+            pipe, "frame_shards_local", num_inference_steps=TIMED_STEPS,
+            scheduler="ddim", **WORKLOAD)
+        chunk, hw = WORKLOAD["decode_chunk"], WORKLOAD["height"]
+        with torch.inference_mode():
+            z = torch.zeros((1, chunk, hw // 8, hw // 8, 4), device=dev)
+            _, per_chunk = counted_eval(lambda: pipe._decode_raw(chunk)(z))
+        first = {}
+
+        def recording(*args, **kw):
+            out = applies["ulysses"](*args, **kw)
+            first.setdefault("eps", out)
+            return out
+
+        # the pipeline's frame-sharded path at one rank (frame_shards > 1
+        # needs as many ranks), swapped in as reference_eval swaps kernels:
+        # the one-rank mesh's frames axis sets the shards
+        pipe.mesh, pipe._sharded_unet_apply = mesh, recording
+        pipe(PROMPT, num_inference_steps=2, scheduler="ddim", **WORKLOAD)
+        first.clear()
+        secs, frames, lat_finite, by_stage, peak = timed_call(
+            pipe, "frame_shards", num_inference_steps=TIMED_STEPS,
+            scheduler="ddim", **WORKLOAD)
+        rel_first = rel_l2(first["eps"], eps_l)
+        check_frames(frames, (16, hw, hw, 3), lat_finite, "frame_shards")
+        steps, chunks = TIMED_STEPS, WORKLOAD["num_frames"] // chunk
+        den, dec = by_stage["denoise"], by_stage["decode"]
+        check_sharded_launches(
+            "the timed call's denoise loop", {k: n * steps for k, n in local.items()},
+            den, n_motion * steps)
+        bad = {k: (dec[k], n * chunks) for k, n in per_chunk.items()
+               if dec[k] != n * chunks}
+        if bad:
+            raise SystemExit(f"[frame_shards] decode launches (got, want): {bad}")
+        log(f"[frame_shards] (d) 512 DDIM on the one-rank mesh (Ulysses): "
+            f"{secs:.3f}s against the local call's {secs_local:.3f}s "
+            f"(+{100 * (secs / secs_local - 1):.1f}%), peak {peak} "
+            f"({peak / 2**30:.2f} GiB; local {peak_local / 2**30:.2f}); "
+            f"first step's eps against the local evaluation rel_l2 "
+            f"{rel_first:.3e} (bar 5e-2)")
+        if rel_first >= 5e-2:
+            raise SystemExit("[frame_shards] the sharded call's first step disagrees")
+        path = dict(secs=secs, by_stage=by_stage, peak=peak, frames=16,
+                    steps=steps, chunks=chunks)
+        summary["timed_512"] = dict(secs=secs, secs_local=secs_local, peak=peak,
+                                    peak_local=peak_local,
+                                    rel_l2_first_step=rel_first,
+                                    launches_local_by_stage={
+                                        k: nonzero(d) for k, d in by_local.items()})
+        del pipe, unet, applies, first, model_in, ctx, eps_l, frames
+        free_card("frame_shards")
+
+        # (b) the SVD UNet at 25 frames 576x1024
+        cfg = fs.get("svd", SVDUNetConfig.svd())
+        svd = build_random(lambda: UNetSpatioTemporal(cfg, policy), dev, 1)
+        n_tres = sum(isinstance(m, TemporalResBlock) for m in svd.modules())
+        gen = torch.Generator(device=dev).manual_seed(2)
+        x = torch.randn((2, *FS_SVD_LATENT, cfg.in_channels), generator=gen,
+                        device=dev)
+        emb = torch.randn((2, 1, cfg.cross_attention_dim), generator=gen,
+                          device=dev)
+        aids = torch.tensor([[6.0, 127.0, 0.02]] * 2, device=dev)
+        t = torch.full((2,), FS_SVD_T, device=dev)
+        eps_l, svd_local = counted_eval(lambda: svd(x, t, emb, aids))
+        apply = make_frame_sharded_svd_unet(mesh)
+        eps, svd_sharded = counted_eval(lambda: apply(svd, x, t, emb, aids))
+        rel_svd = rel_l2(eps, eps_l)
+        check_sharded_launches("the SVD UNet", svd_local, svd_sharded, 2 * n_tres)
+        log(f"[frame_shards] (b) SVD UNet 25x576x1024, CFG batch, halo path: "
+            f"rel_l2 {rel_svd:.3e} (bar 5e-2), finite "
+            f"{bool(torch.isfinite(eps).all())}; launches local "
+            f"{nonzero(svd_local)} sharded {nonzero(svd_sharded)} "
+            f"({2 * n_tres} temporal-resblock "
+            f"GroupNorms off K2/K3)")
+        if rel_svd >= 5e-2 or not bool(torch.isfinite(eps).all()):
+            raise SystemExit("[frame_shards] the SVD UNet disagrees")
+        summary["svd"] = dict(rel_l2=rel_svd, launches_local=nonzero(svd_local),
+                              launches_sharded=nonzero(svd_sharded))
+        del svd, x, eps, eps_l
+        free_card("frame_shards")
+
+        # (c) Latte-XL at 16 frames 512x512, temporal_impl "ulysses:frames"
+        lcfg = fs.get("latte", LatteConfig.xl())
+        latte = build_random(lambda: LatteDiT(lcfg, policy), dev, 3)
+        x = torch.randn((2, *FS_LATTE_LATENT, 4), generator=gen, device=dev)
+        ctx = torch.randn((2, 77, lcfg.cross_attention_dim), generator=gen,
+                          device=dev)
+        t = torch.full((2,), 961.0, device=dev)
+        eps_l, l_local = counted_eval(lambda: latte(x, t, ctx))
+        apply = make_frame_sharded_denoiser(mesh, seq_impl="ulysses")
+        eps, l_sharded = counted_eval(lambda: apply(latte, x, t, ctx))
+        rel_latte = rel_l2(eps, eps_l)
+        check_sharded_launches("Latte-XL", l_local, l_sharded, 0)
+        log(f"[frame_shards] (c) Latte-XL 16x512x512, ulysses:frames: rel_l2 "
+            f"{rel_latte:.3e} (bar 5e-2); launches {nonzero(l_sharded)} (local "
+            f"{nonzero(l_local)})")
+        if rel_latte >= 5e-2 or not bool(torch.isfinite(eps).all()):
+            raise SystemExit("[frame_shards] Latte-XL disagrees")
+        summary["latte"] = dict(rel_l2=rel_latte, launches=nonzero(l_sharded))
+        del latte, x, eps, eps_l
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+    summary["phase_s"] = time.time() - t_phase
+    log(f"[frame_shards] phase done ({summary['phase_s']:.1f}s)")
+    return path, summary
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", choices=("frame_shards",),
+                    help="build the kernels and run this phase alone (28), "
+                         "then the same last line")
+    args = ap.parse_args(argv)
     faulthandler.dump_traceback_later(HANG_BUDGET_S, exit=True)
     t_start = time.time()
     if not (ROOT / "vdx_torch" / "csrc").is_dir():
@@ -3713,6 +4038,20 @@ def main() -> int:
             if line.startswith("$ ")))
         log("[build] ptxas per kernel (registers, spill stores/loads): "
             + ptxas_summary(info["nvcc_output"]))
+
+    if args.only == "frame_shards":
+        path, frame_shards = run_frame_shards(dev)
+        log(json.dumps({"frame_shards": frame_shards, "paths": {
+            "frame_shards": {"timed_call_s": path["secs"],
+                             "max_memory_allocated": path["peak"],
+                             "launches_by_stage": path["by_stage"]}},
+            "build_s": info["build_s"], "total_s": time.time() - t_start}))
+        log(smi)
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        faulthandler.cancel_dump_traceback_later()
+        return 0
 
     # 3. kernels against their plain versions
     t0 = time.time()
@@ -3915,6 +4254,11 @@ def main() -> int:
     paths["train"], train = run_training(dev)
     torch.cuda.empty_cache()
 
+    # 28. frame sharding on a one-rank NCCL mesh: UNetMotion (ulysses,
+    # ring, ragged ring), the SVD UNet, Latte-XL, the timed 512 call
+    paths["frame_shards"], frame_shards = run_frame_shards(dev)
+    torch.cuda.empty_cache()
+
     # Counts are per kernel at every shape, within the row's stage of its
     # path's run: the denoise loop of a timed call (per step), its VAE
     # encode and decode (per chunk), the GN dispatch at 2560 channels, the
@@ -3966,6 +4310,7 @@ def main() -> int:
                   for k in ("rel_l2_unet_eval", "params", "held_before")},
         "cogvideox": cogvideox,
         "train": train,
+        "frame_shards": frame_shards,
         # every flash attention counter (kernels.flash_attention
         # .launch_counts) with its launches at phase 3's edges
         "edge_launches": edge_launches,

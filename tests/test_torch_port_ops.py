@@ -179,12 +179,24 @@ def _check_group_norm_against_vdx(shape, eps, silu):
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
 
 
-def _check_group_norm_defers_the_parallel_options():
+def _check_group_norm_sharded_forms():
+    """The statistics over a mesh axis need that axis bound (held against
+    vdx at 4 ranks in tests/test_torch_port_parallel.py): outside
+    ``Mesh.bind()`` they raise, never run locally. A frame mask alone is
+    vdx's masked local statistics."""
     x = torch.zeros(1, 4, 32)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NameError, match="unbound axis name 'frames'"):
         TG.group_norm(x, 32, None, None, stats_axis_name="frames")
-    with pytest.raises(NotImplementedError):
-        TG.group_norm(x, 32, None, None, frame_mask=torch.ones(4, dtype=bool))
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((2, 4, 3, 3, 16)).astype(np.float32) * 2 + 0.5
+    scale, bias = (rng.standard_normal(16).astype(np.float32) for _ in range(2))
+    mask = np.array([True, True, True, False])
+    want = np.asarray(JG.group_norm_silu(
+        jnp.asarray(x), 4, jnp.asarray(scale), jnp.asarray(bias), 1e-6,
+        frame_mask=jnp.asarray(mask)))
+    got = TG.group_norm_silu(_t(x), 4, _t(scale), _t(bias), 1e-6,
+                             frame_mask=_t(mask))
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5)
 
 
 def _check_attention_against_vdx(impl, dtype, Sq, Skv):
@@ -220,11 +232,15 @@ def _check_masked_attention_against_vdx():
     np.testing.assert_allclose(got.numpy(), want, atol=2e-5)
 
 
-def _check_attention_raises_on_what_is_not_ported():
-    """Only ring attention (the parallel slice) is left."""
+def _check_attention_ring_needs_a_bound_axis():
+    """Ring attention runs over a bound mesh axis (held against vdx at 4
+    ranks in tests/test_torch_port_parallel.py) and raises outside one;
+    ``kv_valid`` is ring-only, as vdx's."""
     q = torch.zeros(1, 16, 1, 8)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NameError, match="unbound axis name 'frames'"):
         TA.dot_product_attention(q, q, q, impl="ring:frames")
+    with pytest.raises(ValueError, match="only supported by ring"):
+        TA.dot_product_attention(q, q, q, kv_valid=torch.ones(16, dtype=bool))
     for impl in ("blockdiag", "xla_bf16p_packed"):
         assert TA.dot_product_attention(q, q, q, impl=impl).shape == q.shape
 
@@ -379,7 +395,7 @@ def test_ops_match_vdx():
 
 
 def test_ops_raise_on_what_is_not_ported_and_gate_main_path():
-    _check_group_norm_defers_the_parallel_options()
-    _check_attention_raises_on_what_is_not_ported()
+    _check_group_norm_sharded_forms()
+    _check_attention_ring_needs_a_bound_axis()
     _check_temporal_wrappers_keep_vdx_preconditions()
     _check_gn_gate_covers_the_main_path_shapes()

@@ -321,9 +321,9 @@ def _check_random_init_follows_vdx_rules():
 def _check_surface_raises(slice_run):
     """vdx's request surface runs (each call's parity with vdx is held in
     tests/test_torch_port_requests.py and test_torch_port_video2video.py);
-    what is still to port raises NotImplementedError naming its ROADMAP
-    item: PAB, context windows, LoRA and checkpoints (Queue 1 item 10b),
-    frame sharding (item 14)."""
+    frame sharding needs a process group of as many ranks
+    (tests/test_torch_port_frame_parallel.py), and a mesh or seq_impl
+    without frame_shards > 1 is ignored, as vdx ignores them."""
     tp = slice_run["tpipe"]
     kw = dict(num_frames=8, height=64, width=64, num_inference_steps=2,
               output_type="latent")
@@ -353,10 +353,10 @@ def _check_surface_raises(slice_run):
     with pytest.raises(ValueError, match="unknown sampler"):
         TPipe(unet_config=TUC.tiny(), vae_config=TVC.tiny(),
               text_config=TCC.tiny(), device="cpu", scheduler="heun")
-    for kwargs in (dict(frame_shards=2), dict(mesh=object()),
-                   dict(seq_impl="ring")):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            _tiny_port(**kwargs)
+    with pytest.raises(RuntimeError, match="process group"):
+        _tiny_port(frame_shards=2)
+    for kwargs in (dict(mesh=object()), dict(seq_impl="ring")):
+        assert _tiny_port(**kwargs).mesh is None
     # PAB, context windows, LoRA and checkpoints are in (item 10b): the
     # pipeline takes them, and rejects what vdx rejects
     assert _tiny_port(pab=PABConfig()).pab == PABConfig()

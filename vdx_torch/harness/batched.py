@@ -105,7 +105,9 @@ def run_batched_experiments(
     written while the next batch runs on the card."""
     if mesh is not None:
         raise NotImplementedError("sharding the batch over a device mesh "
-                                  "comes with ROADMAP Queue 1 item 14")
+                                  "(the data axis) comes with the next slice "
+                                  "of the port (ROADMAP Queue 1 item 14, "
+                                  "step 8)")
     output_dir = Path(output_dir)
     output_dir.mkdir(parents=True, exist_ok=True)
 

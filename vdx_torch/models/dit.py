@@ -22,8 +22,13 @@ pipelines/latte.py folds a diffusers checkpoint into it.
 
 ``pab_refresh`` / ``pab_cache`` as UNetMotion's: attn1 of a spatial block
 takes "spatial", attn2 "cross", attn1 of a temporal block "temporal".
-Frame-sharded execution (``temporal_impl`` other than "local",
-``frames_valid``) waits for ROADMAP Queue 1 item 14.
+
+Frame sharding (``temporal_impl`` "ring:<axis>" or "ulysses:<axis>",
+``frames_valid``, as vdx's): the spatial blocks are frame-local; only the
+temporal blocks communicate, through the Ulysses all_to_all swap where
+B*N divides the mesh axis and ring attention otherwise, and the frame PE
+takes global frame positions (nn/frame_shard.py, the motion module's
+rule).
 """
 
 from __future__ import annotations
@@ -40,6 +45,8 @@ from vdx_torch.nn.attention import Attention, GELUFeedForward
 from vdx_torch.nn.embeddings import (TimestepEmbedding, get_timestep_embedding,
                                      sinusoidal_positional_encoding)
 from vdx_torch.nn.layers import Dense
+from vdx_torch.nn.frame_shard import (_shard_axis, global_frame_pe,
+                                      run_temporal_site)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,10 +112,11 @@ class DiTBlock(nn.Module):
         self.ff = GELUFeedForward(D, cfg.mlp_ratio, policy)
 
     def forward(self, x, c, context=None, refresh_self=None, refresh_cross=None,
-                cache=None):
+                cache=None, attn_impl=None, kv_valid=None):
         shift_a, scale_a, gate_a, shift_m, scale_m, gate_m = self.adaln(c)
         h = _modulate(_layer_norm(x), shift_a, scale_a)
-        x = x + gate_a * self.attn1(h, None, refresh_self, cache)
+        x = x + gate_a * self.attn1(h, None, refresh_self, cache,
+                                    impl=attn_impl, kv_valid=kv_valid)
         if self.attn2 is not None and context is not None:
             # on the raw hidden states: no norm before the cross-attention
             x = x + self.attn2(x, context, refresh_cross, cache)
@@ -119,15 +127,11 @@ class DiTBlock(nn.Module):
 class LatteDiT(nn.Module):
     def __init__(self, config: LatteConfig = LatteConfig(),
                  policy: Policy = DEFAULT_POLICY, attn_impl: str = "auto",
-                 freeu=None, temporal_impl: str = "local"):
+                 freeu=None):
         super().__init__()
         if freeu is not None:
             raise ValueError("LatteDiT has no skip-connection up path — FreeU "
                              "does not apply")
-        if temporal_impl != "local":
-            raise NotImplementedError(
-                "frame-sharded Latte (temporal_impl) comes with ROADMAP "
-                "Queue 1 item 14")
         cfg = config
         self.config = cfg
         self.policy = policy
@@ -154,14 +158,14 @@ class LatteDiT(nn.Module):
     def forward(self, sample: torch.Tensor, timestep: torch.Tensor,
                 context: Optional[torch.Tensor] = None, *,
                 pab_refresh: Optional[dict] = None,
-                pab_cache: Optional[dict] = None, frames_valid=None):
+                pab_cache: Optional[dict] = None,
+                frames_valid: Optional[int] = None,
+                temporal_impl: str = "local"):
         """sample [B, F, H, W, C], timestep scalar or [B], context
         [B, S, cross_dim] or None -> [B, F, H, W, C_out] in the output
-        dtype; with ``pab_refresh``, -> (that, the PAB cache)."""
-        if frames_valid is not None:
-            raise NotImplementedError(
-                "frames_valid (ragged frame sharding) comes with ROADMAP "
-                "Queue 1 item 14")
+        dtype; with ``pab_refresh``, -> (that, the PAB cache). Under frame
+        sharding F is this rank's shard of the frame axis."""
+        s_axis = _shard_axis(temporal_impl)
         cfg = self.config
         cd = self.policy.compute_dtype
         B, F_, H, W, C = sample.shape
@@ -177,7 +181,7 @@ class LatteDiT(nn.Module):
                      proj.bias.to(cd))
         dev = sample.device
         x = x + sinusoidal_positional_encoding(N, D, dev).to(x.dtype)[None, None]
-        pos_t = sinusoidal_positional_encoding(F_, D, dev).to(x.dtype)
+        pos_t = global_frame_pe(F_, D, s_axis, dev).to(x.dtype)
 
         t = torch.as_tensor(timestep, device=dev).reshape(-1).expand(B)
         c = self.adaln_single.emb.timestep_embedder(get_timestep_embedding(t, 256))
@@ -200,8 +204,13 @@ class LatteDiT(nn.Module):
                 xt = x.transpose(1, 2).reshape(B * N, F_, D)
                 if i == 1:
                     xt = xt + pos_t[None]
-                xt = blk(xt, c.repeat_interleave(N, dim=0), None,
-                         rm.get("temporal"), None, cache)
+                xt = run_temporal_site(
+                    lambda xt, axis, kv_valid, ct: blk(
+                        xt, ct, None, rm.get("temporal"), None, cache,
+                        None if axis is None else f"ring:{axis}", kv_valid),
+                    xt, temporal_impl,
+                    frames_valid if s_axis is not None else None,
+                    (c.repeat_interleave(N, dim=0),))
                 x = xt.reshape(B, N, F_, D).transpose(1, 2)
 
         # final modulation: the table plus the RAW conditioning

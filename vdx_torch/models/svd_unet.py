@@ -17,8 +17,10 @@ UNetSpatioTemporalConditionModel (resnets.j.spatial_res_block,
 .temporal_res_block, .time_mixer; attentions.j.transformer_blocks.0,
 .temporal_transformer_blocks.0, ...), so vdx's ``svd_unet_rules`` name
 every weight. ``attn_impl``, ``freeu`` and PAB as UNetMotion's (the
-temporal block takes "temporal"). Frame-sharded execution waits for
-ROADMAP Queue 1 item 14.
+temporal block takes "temporal"). Frame sharding: ``temporal_impl`` and
+``frames_valid`` as UNetMotion's, reaching the temporal resblocks (GN
+statistics over the global frame axis, halo'd frame convs:
+nn/resnet.frame_conv_stage) and the temporal transformer blocks.
 """
 
 from __future__ import annotations
@@ -78,12 +80,14 @@ class SpatioTemporalResBlock(nn.Module):
                                                    policy)
         self.time_mixer = AlphaBlender()
 
-    def forward(self, x: torch.Tensor, temb: torch.Tensor,
-                num_frames: int) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, temb: torch.Tensor, num_frames: int,
+                temporal_impl: str = "local",
+                frames_valid: Optional[int] = None) -> torch.Tensor:
         s = self.spatial_res_block(x, temb)
         BF, H, W, C = s.shape
         h = s.reshape(BF // num_frames, num_frames, H, W, C)
-        t = (h + self.temporal_res_block(h, temb)).reshape(BF, H, W, C)
+        t = h + self.temporal_res_block(h, temb, temporal_impl, frames_valid)
+        t = t.reshape(BF, H, W, C)
         return self.time_mixer(s, t)
 
 
@@ -105,7 +109,8 @@ class TransformerSpatioTemporal(nn.Module):
 
     def forward(self, x: torch.Tensor, context: torch.Tensor, num_frames: int,
                 refresh: Optional[dict] = None,
-                cache: Optional[dict] = None) -> torch.Tensor:
+                cache: Optional[dict] = None, temporal_impl: str = "local",
+                frames_valid: Optional[int] = None) -> torch.Tensor:
         r = refresh or {}
         BF, H, W, C = x.shape
         B, F_ = BF // num_frames, num_frames
@@ -113,7 +118,8 @@ class TransformerSpatioTemporal(nn.Module):
         hs = self.transformer_blocks[0](h.reshape(BF, H * W, C), context,
                                         r.get("spatial"), r.get("cross"), cache)
         ht = hs.reshape(B, F_, H * W, C).transpose(1, 2).reshape(B * H * W, F_, C)
-        ht = self.temporal_transformer_blocks[0](ht, r.get("temporal"), cache)
+        ht = self.temporal_transformer_blocks[0](ht, r.get("temporal"), cache,
+                                                 temporal_impl, frames_valid)
         ht = ht.reshape(B, H * W, F_, C).transpose(1, 2).reshape(BF, H * W, C)
         h = self.time_mixer(hs, ht).reshape(BF, H, W, C)
         return self.proj_out(h) + x
@@ -145,10 +151,12 @@ class _Stage(nn.Module):
             self.upsamplers = nn.ModuleList(
                 [Upsample2D(channels, channels, policy)])
 
-    def layer(self, i, x, temb, context, num_frames, refresh=None, cache=None):
-        x = self.resnets[i](x, temb, num_frames)
+    def layer(self, i, x, temb, context, num_frames, refresh=None, cache=None,
+              **frames):
+        x = self.resnets[i](x, temb, num_frames, **frames)
         if self.attentions is not None:
-            x = self.attentions[i](x, context, num_frames, refresh, cache)
+            x = self.attentions[i](x, context, num_frames, refresh, cache,
+                                   **frames)
         return x
 
 
@@ -207,7 +215,9 @@ class UNetSpatioTemporal(nn.Module):
     def forward(self, sample: torch.Tensor, timestep: torch.Tensor,
                 image_embeds: torch.Tensor, added_time_ids: torch.Tensor, *,
                 pab_refresh: Optional[dict] = None,
-                pab_cache: Optional[dict] = None):
+                pab_cache: Optional[dict] = None,
+                frames_valid: Optional[int] = None,
+                temporal_impl: str = "local"):
         """sample [B, F, H, W, 8], timestep scalar or [B] (EDM's continuous
         t), image_embeds [B, 1, cross_dim], added_time_ids [B, 3] ->
         [B, F, H, W, 4] in the output dtype; with ``pab_refresh``, ->
@@ -230,19 +240,20 @@ class UNetSpatioTemporal(nn.Module):
 
         r = pab_refresh
         cache = None if r is None else ({} if pab_cache is None else pab_cache)
+        fr = dict(temporal_impl=temporal_impl, frames_valid=frames_valid)
         x = self.conv_in(x)
         residuals = [x]
         for blk in self.down_blocks:
             for li in range(len(blk.resnets)):
-                x = blk.layer(li, x, temb, context, F_, r, cache)
+                x = blk.layer(li, x, temb, context, F_, r, cache, **fr)
                 residuals.append(x)
             if hasattr(blk, "downsamplers"):
                 x = blk.downsamplers[0](x)
                 residuals.append(x)
 
         mid = self.mid_block
-        x = mid.layer(0, x, temb, context, F_, r, cache)
-        x = mid.resnets[1](x, temb, F_)
+        x = mid.layer(0, x, temb, context, F_, r, cache, **fr)
+        x = mid.resnets[1](x, temb, F_, **fr)
 
         for bi, blk in enumerate(self.up_blocks):
             for li in range(len(blk.resnets)):
@@ -250,7 +261,7 @@ class UNetSpatioTemporal(nn.Module):
                 if self.freeu is not None:
                     x, skip = apply_freeu(bi, x, skip, self.freeu)
                 x = torch.cat([x, skip], dim=-1)
-                x = blk.layer(li, x, temb, context, F_, r, cache)
+                x = blk.layer(li, x, temb, context, F_, r, cache, **fr)
             if hasattr(blk, "upsamplers"):
                 x = blk.upsamplers[0](x)
 

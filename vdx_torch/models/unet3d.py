@@ -20,8 +20,11 @@ flattened [B*F, H, W, C] view. Module names follow diffusers
 Broadcast the forward takes ``pab_refresh`` and ``pab_cache`` and returns
 (output, cache) (models/unet_motion.py): attn1 of a spatial block takes
 "spatial", attn2 "cross", both attentions of a temporal transformer
-(``transformer_in`` included) "temporal". Frame-sharded execution waits
-for ROADMAP Queue 1 item 14.
+(``transformer_in`` included) "temporal". Frame sharding:
+``temporal_impl`` and ``frames_valid`` as UNetMotion's, reaching the two
+cross-frame ops, TemporalConv (GN statistics over the global frame axis,
+halo'd frame convs: nn/resnet.frame_conv_stage) and the temporal
+transformers.
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ from vdx_torch.nn.embeddings import TimestepEmbedding, get_timestep_embedding
 from vdx_torch.nn.freeu import FreeUConfig, apply_freeu
 from vdx_torch.nn.layers import Conv2d, FrameConv
 from vdx_torch.nn.resnet import (Downsample2D, GroupNormModule, ResnetBlock2D,
-                                 Upsample2D, frame_groups)
+                                 Upsample2D, frame_conv_stage, frame_groups)
 from vdx_torch.nn.temporal import TemporalTransformer3D
 from vdx_torch.nn.transformer import SpatialTransformer
 
@@ -81,12 +84,14 @@ class TemporalConv(nn.Module):
                 GroupNormModule(channels, g, 1e-5, with_silu=True, policy=policy),
                 nn.Identity(), FrameConv(channels, channels, policy)]))
 
-    def forward(self, x: torch.Tensor, num_frames: int) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, num_frames: int,
+                temporal_impl: str = "local",
+                frames_valid: Optional[int] = None) -> torch.Tensor:
         BF, H, W, C = x.shape
         h = x.reshape(BF // num_frames, num_frames, H, W, C)
         for i in range(1, 5):
             norm, _, conv = getattr(self, f"conv{i}")
-            h = conv(norm(h))
+            h = frame_conv_stage(norm, conv, h, temporal_impl, frames_valid)
         return x + h.reshape(BF, H, W, C)
 
 
@@ -125,15 +130,17 @@ class _Stage(nn.Module):
             self.upsamplers = nn.ModuleList(
                 [Upsample2D(channels, channels, policy)])
 
-    def layer(self, i, x, temb, context, num_frames, refresh=None, cache=None):
+    def layer(self, i, x, temb, context, num_frames, refresh=None, cache=None,
+              **frames):
         """One (resnet -> temporal conv -> spatial -> temporal) unit."""
         r = refresh or {}
         x = self.resnets[i](x, temb)
-        x = self.temp_convs[i](x, num_frames)
+        x = self.temp_convs[i](x, num_frames, **frames)
         if self.attentions is not None:
             x = self.attentions[i](x, context, r.get("spatial"), r.get("cross"),
                                    cache)
-            x = self.temp_attentions[i](x, num_frames, r.get("temporal"), cache)
+            x = self.temp_attentions[i](x, num_frames, r.get("temporal"), cache,
+                                        **frames)
         return x
 
 
@@ -194,7 +201,9 @@ class UNet3D(nn.Module):
     @exact_fp32_method
     def forward(self, sample: torch.Tensor, timestep: torch.Tensor,
                 context: torch.Tensor, *, pab_refresh: Optional[dict] = None,
-                pab_cache: Optional[dict] = None):
+                pab_cache: Optional[dict] = None,
+                frames_valid: Optional[int] = None,
+                temporal_impl: str = "local"):
         """sample [B, F, H, W, C_in], timestep scalar or [B], context
         [B, S_text, D] -> [B, F, H, W, C_out] in the output dtype; with
         ``pab_refresh``, -> (that, the PAB cache)."""
@@ -212,20 +221,21 @@ class UNet3D(nn.Module):
         r = pab_refresh
         cache = None if r is None else ({} if pab_cache is None else pab_cache)
         rm = r or {}
+        fr = dict(temporal_impl=temporal_impl, frames_valid=frames_valid)
         x = self.conv_in(x)
-        x = self.transformer_in(x, F_, rm.get("temporal"), cache)
+        x = self.transformer_in(x, F_, rm.get("temporal"), cache, **fr)
         residuals = [x]
         for blk in self.down_blocks:
             for li in range(len(blk.resnets)):
-                x = blk.layer(li, x, temb, context, F_, r, cache)
+                x = blk.layer(li, x, temb, context, F_, r, cache, **fr)
                 residuals.append(x)
             if hasattr(blk, "downsamplers"):
                 x = blk.downsamplers[0](x)
                 residuals.append(x)
 
         mid = self.mid_block
-        x = mid.layer(0, x, temb, context, F_, r, cache)
-        x = mid.temp_convs[1](mid.resnets[1](x, temb), F_)
+        x = mid.layer(0, x, temb, context, F_, r, cache, **fr)
+        x = mid.temp_convs[1](mid.resnets[1](x, temb), F_, **fr)
 
         for bi, blk in enumerate(self.up_blocks):
             for li in range(len(blk.resnets)):
@@ -233,7 +243,7 @@ class UNet3D(nn.Module):
                 if self.freeu is not None:
                     x, skip = apply_freeu(bi, x, skip, self.freeu)
                 x = torch.cat([x, skip], dim=-1)
-                x = blk.layer(li, x, temb, context, F_, r, cache)
+                x = blk.layer(li, x, temb, context, F_, r, cache, **fr)
             if hasattr(blk, "upsamplers"):
                 x = blk.upsamplers[0](x)
 

@@ -19,7 +19,11 @@ name; None for a new one) and returns (output, cache), the cache updated
 in place. attn1 of a spatial block takes "spatial", attn2 "cross", both
 attentions of a motion module "temporal", in the mid block as in the
 others (vdx/models/unet_motion.py).
-Frame-sharded temporal attention waits for ROADMAP Queue 1 item 14.
+
+Frame sharding: ``temporal_impl`` ("local", "ring:<axis>" or
+"ulysses:<axis>", a forward argument) reaches every motion module, and ``frames_valid`` (the global count of real frames in a padded
+frame axis, or None) with it; the weights are the same in every mode
+(nn/temporal.py, parallel/frame_parallel.py).
 """
 
 from __future__ import annotations
@@ -107,14 +111,17 @@ class _Stage(nn.Module):
             self.upsamplers = nn.ModuleList(
                 [Upsample2D(channels, channels, policy)])
 
-    def layer(self, i, x, temb, context, num_frames, refresh=None, cache=None):
-        """One (resnet -> spatial -> cross -> motion) unit."""
+    def layer(self, i, x, temb, context, num_frames, refresh=None, cache=None,
+              **frames):
+        """One (resnet -> spatial -> cross -> motion) unit; ``frames``:
+        ``temporal_impl`` and ``frames_valid`` of the motion module."""
         r = refresh or {}
         x = self.resnets[i](x, temb)
         if self.attentions is not None:
             x = self.attentions[i](x, context, r.get("spatial"), r.get("cross"),
                                    cache)
-        return self.motion_modules[i](x, num_frames, r.get("temporal"), cache)
+        return self.motion_modules[i](x, num_frames, r.get("temporal"), cache,
+                                      **frames)
 
 
 class _MidBlock(nn.Module):
@@ -181,10 +188,13 @@ class UNetMotion(nn.Module):
     @exact_fp32_method
     def forward(self, sample: torch.Tensor, timestep: torch.Tensor,
                 context: torch.Tensor, *, pab_refresh: Optional[dict] = None,
-                pab_cache: Optional[dict] = None):
+                pab_cache: Optional[dict] = None,
+                frames_valid: Optional[int] = None,
+                temporal_impl: str = "local"):
         """sample [B, F, H, W, C_in], timestep scalar or [B], context
         [B, S_text, D] -> [B, F, H, W, C_out] in the output dtype; with
-        ``pab_refresh``, -> (that, the PAB cache)."""
+        ``pab_refresh``, -> (that, the PAB cache). Under frame sharding
+        F is this rank's shard of the frame axis."""
         cfg = self.config
         cd = self.policy.compute_dtype
         B, F_, H, W, Cin = sample.shape
@@ -201,11 +211,12 @@ class UNetMotion(nn.Module):
         # updated in place: a refreshed site's old output is freed as the
         # new one is stored, so the cache never exists twice
         cache = None if r is None else ({} if pab_cache is None else pab_cache)
+        fr = dict(temporal_impl=temporal_impl, frames_valid=frames_valid)
         x = self.conv_in(x)
         residuals = [x]
         for blk in self.down_blocks:
             for li in range(len(blk.resnets)):
-                x = blk.layer(li, x, temb, context, F_, r, cache)
+                x = blk.layer(li, x, temb, context, F_, r, cache, **fr)
                 residuals.append(x)
             if hasattr(blk, "downsamplers"):
                 x = blk.downsamplers[0](x)
@@ -216,7 +227,7 @@ class UNetMotion(nn.Module):
         rm = r or {}
         x = mid.attentions[0](x, context, rm.get("spatial"), rm.get("cross"),
                               cache)
-        x = mid.motion_modules[0](x, F_, rm.get("temporal"), cache)
+        x = mid.motion_modules[0](x, F_, rm.get("temporal"), cache, **fr)
         x = mid.resnets[1](x, temb)
 
         for bi, blk in enumerate(self.up_blocks):
@@ -225,7 +236,7 @@ class UNetMotion(nn.Module):
                 if self.freeu is not None:
                     x, skip = apply_freeu(bi, x, skip, self.freeu)
                 x = torch.cat([x, skip], dim=-1)
-                x = blk.layer(li, x, temb, context, F_, r, cache)
+                x = blk.layer(li, x, temb, context, F_, r, cache, **fr)
             if hasattr(blk, "upsamplers"):
                 x = blk.upsamplers[0](x)
 

@@ -77,18 +77,26 @@ class Attention(nn.Module):
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
                 refresh: Optional[bool] = None,
                 cache: Optional[dict] = None,
-                rope: Optional[Rope] = None) -> torch.Tensor:
+                rope: Optional[Rope] = None, *, impl: Optional[str] = None,
+                kv_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``impl`` overrides the module's ``attn_impl`` for this call (a
+        frame-sharded temporal site's "ring:<axis>"); ``kv_valid`` is the
+        ring's key mask (ops/attention.py)."""
+        sharded = {k: v for k, v in (("impl", impl), ("kv_valid", kv_valid))
+                   if v is not None}
         if refresh is None:
-            return self._compute(x, context, rope)
+            return self._compute(x, context, rope, **sharded)
         if refresh:
-            cache[self.pab_key] = self._compute(x, context, rope)
+            cache[self.pab_key] = self._compute(x, context, rope, **sharded)
         return cache[self.pab_key]
 
     def _compute(self, x: torch.Tensor, context: Optional[torch.Tensor],
-                 rope: Optional[Rope]) -> torch.Tensor:
+                 rope: Optional[Rope], impl: Optional[str] = None,
+                 kv_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+        impl = impl or self.attn_impl
         ctx = x if context is None else context
         if (ctx.shape[1] == 1 and self.norm_q is None and rope is None
-                and not self.attn_impl.startswith("ring")):
+                and not impl.startswith("ring")):
             # Single-KV attention: the softmax over one key is identically
             # 1, so the output is to_out(v) broadcast over the queries —
             # exact, not an approximation (vdx/nn/attention.py:78-101).
@@ -108,7 +116,7 @@ class Attention(nn.Module):
             q = apply_rope(q, rope)
             k = apply_rope(k, rope)
         out = dot_product_attention(q, k, v, scale=self.head_dim ** -0.5,
-                                    impl=self.attn_impl)
+                                    impl=impl, kv_valid=kv_valid)
         return self.to_out[0](out.reshape(B, Sq, self.heads * self.head_dim))
 
 

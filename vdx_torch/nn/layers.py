@@ -72,7 +72,12 @@ class FrameConv(nn.Module):
     the [B, C, F, H*W] view of the channels-last input (no layout copy):
     the same sums, accumulated in fp32 and rounded once, on cuDNN's 2D
     kernels. (cuDNN ran the bf16 Conv3d at the temporal decoder's 576x1024
-    planes on an fp32 SIMT-tiled kernel, 13 ms a call on an H100.)"""
+    planes on an fp32 SIMT-tiled kernel, 13 ms a call on an H100.)
+
+    ``padding="same"`` zero-pads the frame axis (local execution);
+    ``padding="valid"`` takes an input already halo-padded by one frame
+    at each end (frame-sharded execution, ops/halo.py), F_out = F - 2
+    (vdx's ``FrameConv3(padding="valid")``)."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  policy: Policy = DEFAULT_POLICY):
@@ -82,10 +87,12 @@ class FrameConv(nn.Module):
                                                dtype=policy.param_dtype))
         self.bias = nn.Parameter(torch.empty(out_channels, dtype=policy.param_dtype))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, padding: str = "same") -> torch.Tensor:
+        if padding not in ("same", "valid"):
+            raise ValueError(f"unknown frame padding {padding!r}")
         cd = self.policy.compute_dtype
         B, F_, H, W, C = x.shape
         x4 = x.to(cd).reshape(B, F_, H * W, C).permute(0, 3, 1, 2)
         y = F.conv2d(x4, self.weight.to(cd)[..., 0], self.bias.to(cd),
-                     padding=(1, 0))
-        return y.permute(0, 2, 3, 1).reshape(B, F_, H, W, -1)
+                     padding=(1, 0) if padding == "same" else (0, 0))
+        return y.permute(0, 2, 3, 1).reshape(B, y.shape[2], H, W, -1)

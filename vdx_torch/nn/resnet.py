@@ -20,8 +20,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from vdx_torch.core.dtypes import DEFAULT_POLICY, Policy
+from vdx_torch.nn.frame_shard import frame_stats
 from vdx_torch.nn.layers import Conv2d, Dense, FrameConv
 from vdx_torch.ops.groupnorm import group_norm, group_norm_silu
+from vdx_torch.ops.halo import frame_halo_pad
 
 
 class GroupNormModule(nn.Module):
@@ -36,9 +38,11 @@ class GroupNormModule(nn.Module):
         self.weight = nn.Parameter(torch.ones(channels, dtype=policy.param_dtype))
         self.bias = nn.Parameter(torch.zeros(channels, dtype=policy.param_dtype))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, stats_axis_name: Optional[str] = None,
+                frame_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         fn = group_norm_silu if self.with_silu else group_norm
-        return fn(x, self.num_groups, self.weight, self.bias, self.eps)
+        return fn(x, self.num_groups, self.weight, self.bias, self.eps,
+                  stats_axis_name, frame_mask)
 
 
 class ResnetBlock2D(nn.Module):
@@ -95,6 +99,25 @@ class Upsample2D(nn.Module):
         return self.conv(x)
 
 
+def frame_conv_stage(norm: GroupNormModule, conv: FrameConv, h: torch.Tensor,
+                     temporal_impl: str = "local",
+                     frames_valid: Optional[int] = None) -> torch.Tensor:
+    """GroupNorm(-SiLU) then a (3, 1, 1) frame conv over [B, F, H, W, C],
+    locally or on a frame shard (vdx's temporal resblock and
+    TemporalConv stages): under frame sharding the GN statistics span the
+    global frame axis and the conv runs "valid" over a halo-padded shard
+    (ops/halo.py); with ragged frames the padded slots are left out of the
+    statistics and zeroed before the conv, so the real/pad boundary reads
+    zero, as the local conv's padding at the clip's true end."""
+    axis, mask = frame_stats(temporal_impl, h.shape[1], frames_valid, h.device)
+    h = norm(h, axis, mask)
+    if mask is not None:
+        h = h * mask.to(h.dtype)[None, :, None, None, None]
+    if axis is None:
+        return conv(h)
+    return conv(frame_halo_pad(h, axis, halo=1, frame_axis=1), padding="valid")
+
+
 def frame_groups(channels: int) -> int:
     """GroupNorm groups of the frame-spanning norms: 32 where they divide
     the channels, else min(C, 8) (vdx's TemporalConv and temporal
@@ -133,12 +156,16 @@ class TemporalResBlock(nn.Module):
         self.norm2 = GroupNormModule(channels, g, 1e-5, True, policy)
         self.conv2 = FrameConv(channels, channels, policy)
 
-    def forward(self, h: torch.Tensor,
-                temb: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """h [B, F, H, W, C], temb [B*F, D] -> the branch (no residual)."""
-        t = self.conv1(self.norm1(h))
+    def forward(self, h: torch.Tensor, temb: Optional[torch.Tensor] = None,
+                temporal_impl: str = "local",
+                frames_valid: Optional[int] = None) -> torch.Tensor:
+        """h [B, F, H, W, C], temb [B*F, D] -> the branch (no residual);
+        a frame shard under frame sharding (:func:`frame_conv_stage`)."""
+        t = frame_conv_stage(self.norm1, self.conv1, h, temporal_impl,
+                             frames_valid)
         if self.time_emb_proj is not None and temb is not None:
             te = F.silu(temb.float()).to(self.policy.compute_dtype)
             B, F_ = h.shape[:2]
             t = t + self.time_emb_proj(te).reshape(B, F_, 1, 1, -1)
-        return self.conv2(self.norm2(t))
+        return frame_conv_stage(self.norm2, self.conv2, t, temporal_impl,
+                                frames_valid)

@@ -1,5 +1,5 @@
 """Temporal (motion) transformer — the AnimateDiff motion module (port of
-vdx/nn/temporal.py, the local mode: all frames on one device).
+vdx/nn/temporal.py).
 
     GroupNorm (stats over frames and space jointly) -> proj_in (Linear)
       -> [B*H*W, F, C]          (each spatial position attends across frames)
@@ -8,8 +8,27 @@ vdx/nn/temporal.py, the local mode: all frames on one device).
     -> proj_out (Linear) -> +residual
 
 Under PAB, ``refresh`` reaches both attentions of every block
-(nn/attention.py). Frame-sharded execution (ring / Ulysses) waits for the
-parallel slice.
+(nn/attention.py).
+
+Frame sharding (``temporal_impl``, vdx's names; the same weights run
+sharded or not). Inside a ``Mesh.bind()`` the frame axis of every tensor
+is this rank's shard, and only the cross-frame ops communicate:
+
+  * ``"ring:<axis>"`` — ring attention: the local queries stay, the KV
+    blocks rotate around the mesh axis (parallel/ring_attention.py);
+  * ``"ulysses:<axis>"`` — two tiled all_to_alls swap [P, F_local, C] to
+    [P/n, F_global, C] around the whole TemporalBlock, which then runs
+    the local program; a site whose positions P do not divide the axis
+    falls back to the ring (a static per-site choice; both are exact).
+
+In both modes the GroupNorm statistics span the global frame axis and the
+frame PE takes global frame positions. Ragged frames (``frames_valid``,
+the global count of real frames in a zero-padded frame axis): the padded
+slots are masked out of the GN statistics and out of every softmax (the
+ring's ``kv_valid``), and where the whole frame axis is on the device the
+block slices it to the real frames, runs, and zero-fills the rest. The
+site's rule lives in nn/frame_shard.py, which Latte's temporal blocks
+share.
 """
 
 from __future__ import annotations
@@ -22,7 +41,8 @@ from torch import nn
 
 from vdx_torch.core.dtypes import DEFAULT_POLICY, Policy
 from vdx_torch.nn.attention import Attention, FeedForward
-from vdx_torch.nn.embeddings import sinusoidal_positional_encoding
+from vdx_torch.nn.frame_shard import (frame_stats, global_frame_pe,
+                                      run_temporal_site)
 from vdx_torch.nn.layers import Dense
 from vdx_torch.nn.resnet import GroupNormModule
 from vdx_torch.nn.transformer import LayerNormF32
@@ -43,16 +63,25 @@ class TemporalBlock(nn.Module):
         self.ff = FeedForward(dim, policy=policy)
 
     def forward(self, x: torch.Tensor, refresh=None,
-                cache: Optional[dict] = None) -> torch.Tensor:  # [P, F, C]
-        pe = sinusoidal_positional_encoding(x.shape[1], self.dim,
-                                            x.device).to(x.dtype)
-        x = x + self.attn1(self.norm1(x) + pe[None], refresh=refresh, cache=cache)
-        x = x + self.attn2(self.norm2(x) + pe[None], refresh=refresh, cache=cache)
-        return x + self.ff(self.norm3(x))
+                cache: Optional[dict] = None, temporal_impl: str = "local",
+                frames_valid: Optional[int] = None) -> torch.Tensor:  # [P, F, C]
+        def body(x, axis, kv_valid):
+            pe = global_frame_pe(x.shape[1], self.dim, axis, x.device)
+            pe = pe.to(x.dtype)[None]
+            attn = dict(impl=None if axis is None else f"ring:{axis}",
+                        kv_valid=kv_valid)
+            x = x + self.attn1(self.norm1(x) + pe, refresh=refresh,
+                               cache=cache, **attn)
+            x = x + self.attn2(self.norm2(x) + pe, refresh=refresh,
+                               cache=cache, **attn)
+            return x + self.ff(self.norm3(x))
+
+        return run_temporal_site(body, x, temporal_impl, frames_valid)
 
 
 class TemporalTransformer3D(nn.Module):
-    """Motion module. Input [B*F, H, W, C] + num_frames; same output."""
+    """Motion module. Input [B*F, H, W, C] + num_frames (the local count
+    under frame sharding); same output."""
 
     def __init__(self, channels: int, heads: int = 8, depth: int = 1,
                  policy: Policy = DEFAULT_POLICY):
@@ -67,16 +96,19 @@ class TemporalTransformer3D(nn.Module):
         self.proj_out = Dense(channels, channels, policy=policy)
 
     def forward(self, x: torch.Tensor, num_frames: int, refresh=None,
-                cache: Optional[dict] = None) -> torch.Tensor:
+                cache: Optional[dict] = None, temporal_impl: str = "local",
+                frames_valid: Optional[int] = None) -> torch.Tensor:
         BF, H, W, C = x.shape
         F_ = num_frames
         B = BF // F_
         residual = x
-        h = self.norm(x.reshape(B, F_, H, W, C))  # GN stats over (F, H, W)
+        # GN stats over (F, H, W): the global frame axis when sharded
+        h = self.norm(x.reshape(B, F_, H, W, C),
+                      *frame_stats(temporal_impl, F_, frames_valid, x.device))
         h = h.permute(0, 2, 3, 1, 4).reshape(B * H * W, F_, C)
         h = self.proj_in(h)
         for blk in self.transformer_blocks:
-            h = blk(h, refresh, cache)
+            h = blk(h, refresh, cache, temporal_impl, frames_valid)
         h = self.proj_out(h)
         h = h.reshape(B, H, W, F_, C).permute(0, 3, 1, 2, 4).reshape(BF, H, W, C)
         return h + residual

@@ -20,6 +20,10 @@ Implementations:
                     score matrix, probs in bf16; exact against
                     ``xla_bf16p``. Plain PyTorch, as vdx's is XLA, and
                     dispatched only when asked for.
+  * ``ring:<axis>`` — ring attention with the sequence sharded over a
+                    bound mesh axis (parallel/ring_attention.py); the only
+                    impl that takes ``kv_valid``, ragged frame sharding's
+                    key mask.
   * ``auto``      — flash for long CUDA sequences (Sq, Skv >= 512,
                     D <= 256); xla_bf16p for maskless bf16 (the temporal
                     sites included, as vdx); else xla. This mirrors vdx,
@@ -40,6 +44,7 @@ from vdx_torch.kernels.flash_attention import (LOG2E, L_FLOOR, STATIC_OFF,
                                                flash_attention,
                                                flash_attention_blockdiag,
                                                flash_attention_dt)
+from vdx_torch.parallel.ring_attention import ring_attention
 
 
 def _xla_attention(q, k, v, scale: float, mask: Optional[torch.Tensor]):
@@ -119,13 +124,15 @@ def dot_product_attention(
     impl: str = "auto",
     kv_valid: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Scaled dot-product attention over [B, S, H, D] tensors."""
+    """Scaled dot-product attention over [B, S, H, D] tensors.
+
+    ``kv_valid`` ([S_kv_local] bool) is ring-only: ragged frame sharding's
+    key-validity mask, rotated around the ring with its KV block."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if kv_valid is not None or impl.startswith("ring:"):
-        raise NotImplementedError(
-            "ring attention (kv_valid, impl='ring:*') comes with the "
-            "parallel slice (ROADMAP Queue 1 item 14)")
+    if kv_valid is not None and not impl.startswith("ring:"):
+        raise ValueError("kv_valid is only supported by ring attention; "
+                         "local ragged paths slice the frame axis instead")
 
     if impl == "auto":
         if mask is None and q.device.type == "cuda" and _should_use_flash(q, k):
@@ -157,4 +164,11 @@ def dot_product_attention(
         if pack == 1 or k.shape[1] != S:
             return _xla_attention_bf16probs(q, k, v, scale)
         return _xla_attention_bf16probs_packed(q, k, v, scale, pack)
+    if impl.startswith("ring:"):
+        # the S axis of q/k/v is a local shard of a mesh axis, bound by a
+        # Mesh.bind() context (the frame-sharded temporal sites)
+        if mask is not None:
+            raise ValueError("ring attention does not support masks")
+        return ring_attention(q, k, v, axis_name=impl.split(":", 1)[1],
+                              scale=scale, kv_valid=kv_valid)
     raise ValueError(f"unknown attention impl {impl!r}")

@@ -15,6 +15,15 @@ call goes through :class:`GroupNormFn`: the kernel runs the forward and
 the backward is the plain formulation's VJP at the saved x, scale and
 bias, as vdx's ``_gn_pallas`` custom VJP (its Pallas kernel is
 forward-only, its backward the XLA formulation's VJP).
+
+Under frame sharding the statistics span the global frame axis:
+``stats_axis_name`` averages the local moments over a bound mesh axis
+(parallel/mesh.pmean), ``frame_mask`` ([F] bool over axis 1) leaves
+padded frame slots out of masked sums whose count is summed with them
+(per-shard real counts differ, so a mean of means would be wrong). vdx
+sends both forms to its XLA formulation, never to its Pallas kernels
+(vdx/ops/groupnorm.py:129-145); the port sends them to the plain
+formulation on every device. That is vdx's routing, not a missing kernel.
 """
 
 from __future__ import annotations
@@ -25,17 +34,39 @@ import torch
 import torch.nn.functional as F
 
 from vdx_torch.kernels.groupnorm import group_norm_silu_cuda
+from vdx_torch.parallel.mesh import pmean, psum
 
 
-def _group_norm_plain(x, num_groups, scale, bias, eps=1e-5):
-    """Plain formulation (mean, then variance of the deviations)."""
+def _group_norm_plain(x, num_groups, scale, bias, eps=1e-5,
+                      stats_axis_name=None, frame_mask=None):
+    """Plain formulation (mean, then variance of the deviations); the
+    sharded forms as vdx's (E[x^2] - mean^2 of the global moments)."""
     C = x.shape[-1]
     if C % num_groups:
         raise ValueError(f"C={C} not divisible by {num_groups} groups")
     xg = x.float().reshape(*x.shape[:-1], num_groups, C // num_groups)
     axes = tuple(range(1, xg.dim() - 2)) + (xg.dim() - 1,)
-    mean = xg.mean(dim=axes, keepdim=True)
-    var = xg.var(dim=axes, keepdim=True, unbiased=False)
+    if frame_mask is not None:
+        w = frame_mask.float().reshape((1, -1) + (1,) * (xg.dim() - 2))
+        per_frame = 1
+        for a in axes:
+            if a != 1:
+                per_frame *= xg.shape[a]
+        cnt = w.sum().reshape(1) * per_frame
+        s1 = (xg * w).sum(dim=axes, keepdim=True)
+        s2 = (xg * xg * w).sum(dim=axes, keepdim=True)
+        if stats_axis_name is not None:
+            s1, s2, cnt = psum((s1, s2, cnt), stats_axis_name)
+        mean = s1 / cnt
+        var = s2 / cnt - mean * mean
+    elif stats_axis_name is not None:
+        mean, sq = pmean((xg.mean(dim=axes, keepdim=True),
+                          (xg * xg).mean(dim=axes, keepdim=True)),
+                         stats_axis_name)
+        var = sq - mean * mean
+    else:
+        mean = xg.mean(dim=axes, keepdim=True)
+        var = xg.var(dim=axes, keepdim=True, unbiased=False)
     y = ((xg - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
     if scale is not None:
         y = y * scale.float()
@@ -44,8 +75,10 @@ def _group_norm_plain(x, num_groups, scale, bias, eps=1e-5):
     return y.to(x.dtype)
 
 
-def _group_norm_silu_plain(x, num_groups, scale, bias, eps=1e-5):
-    y = _group_norm_plain(x, num_groups, scale, bias, eps)
+def _group_norm_silu_plain(x, num_groups, scale, bias, eps=1e-5,
+                           stats_axis_name=None, frame_mask=None):
+    y = _group_norm_plain(x, num_groups, scale, bias, eps, stats_axis_name,
+                          frame_mask)
     return F.silu(y.float()).to(x.dtype)
 
 
@@ -82,10 +115,10 @@ class GroupNormFn(torch.autograd.Function):
 
 def _dispatch(x, num_groups, scale, bias, eps, stats_axis_name, frame_mask,
               with_silu):
+    ref = _group_norm_silu_plain if with_silu else _group_norm_plain
     if stats_axis_name is not None or frame_mask is not None:
-        raise NotImplementedError(
-            "stats_axis_name/frame_mask come with the parallel slice "
-            "(ROADMAP Queue 1 item 14)")
+        # vdx's routing: the sharded forms never reach the kernels
+        return ref(x, num_groups, scale, bias, eps, stats_axis_name, frame_mask)
     if x.device.type == "cuda":
         if scale is None or bias is None:
             raise ValueError("the CUDA GroupNorm kernels take scale and bias")
@@ -93,7 +126,6 @@ def _dispatch(x, num_groups, scale, bias, eps, stats_axis_name, frame_mask,
                                         or bias.requires_grad):
             return GroupNormFn.apply(x, scale, bias, num_groups, eps, with_silu)
         return group_norm_silu_cuda(x, num_groups, scale, bias, eps, with_silu)
-    ref = _group_norm_silu_plain if with_silu else _group_norm_plain
     return ref(x, num_groups, scale, bias, eps)
 
 
@@ -108,7 +140,10 @@ def group_norm(
 ) -> torch.Tensor:
     """GroupNorm over a channels-last tensor [B, ..., C]: statistics span
     every axis but the batch and the group split of the last axis (for
-    [B, F, H, W, C], frames and space jointly)."""
+    [B, F, H, W, C], frames and space jointly). ``stats_axis_name``: the
+    mesh axis the reduction axes are sharded over (the moments are
+    averaged across it); ``frame_mask``: [F] bool over axis 1, the real
+    frame slots of a padded frame axis (see the module docstring)."""
     return _dispatch(x, num_groups, scale, bias, eps, stats_axis_name,
                      frame_mask, False)
 

@@ -1,4 +1,6 @@
-"""Training (``train``): the eps-prediction DDPM step over the motion
-UNet on one card, in full or through a LoRA adapter. The multi-card half
-of vdx's ``vdx.parallel`` (mesh, frame-parallel and ring attention) is not
-ported yet (ROADMAP Queue 1 item 14)."""
+"""vdx's ``vdx.parallel`` on PyTorch: the mesh and its axis bindings
+(``mesh``), multi-process bring-up (``distributed``), ring attention
+(``ring_attention``), frame-sharded denoisers (``frame_parallel``) and
+training on one card (``train``). Window-parallel context, the data axis,
+the train step over a mesh and tensor parallelism come with the next
+slice of the port (ROADMAP Queue 1 item 14, steps 7-8)."""

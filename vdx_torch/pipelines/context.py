@@ -17,7 +17,8 @@ Rescheduling", 2023).
   pipeline equals the context-free one bit for bit.
 
 Window parallelism over several devices (vdx's
-``make_windowed_apply_sharded``) comes with ROADMAP Queue 1 item 14.
+``make_windowed_apply_sharded``) comes with the next slice of the port
+(ROADMAP Queue 1 item 14, step 7).
 """
 
 from __future__ import annotations
