@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py        # from the root of a checkout, one GPU
     python3 chip_smoke.py --only frame_shards   # build, then phase 28 alone
+    python3 chip_smoke.py --only mesh_axes      # build, then phase 29 alone
 
 Phases, one flushed line each with its seconds:
   1. environment: torch, CUDA, nvidia-smi name and power limit, the SM
@@ -217,6 +218,29 @@ Phases, one flushed line each with its seconds:
      frame-sharded path: shard-local decode, frames gathered): the first
      step's eps against the local evaluation (5e-2), frames, seconds,
      peak, launches by stage
+ 29. the rest of the mesh (bf16, seeded random weights, a one-rank NCCL
+     mesh): (a) phase 18's call (32 frames at 512x512, ContextConfig(),
+     25 DDIM steps) through the sequential windows and through
+     make_windowed_apply(mesh=) over the one-rank frames axis (the
+     pipeline's window-parallel path swapped in): latents and frames
+     equal bit for bit, the window evaluations counted by wrapper, the
+     denoise launches equal (K1 750), seconds and peaks; (b)
+     run_batched_experiments on two grid configs at 512 (25 DDIM) with
+     and without mesh=make_mesh(1, 1, 1): every PNG, GIF and config.json
+     byte for byte, s a video, launches; (d) K1 at the local heads of
+     2-way tensor parallelism, [32,4096,4,40] and [32,1024,4,80], against
+     its plain version, SDPA and its bound; (e) two processes on the one
+     card in a gloo group (NCCL refuses two ranks on one card) run the
+     UNetMotion at 512 cut by tensor_parallel over a 1x1x2 mesh: eps
+     against the local call (5e-2), K1 10 a call at the local heads; (c)
+     phase 27's training setting through make_mesh_train_step:
+     param_sharding_rules all replicated at one rank, the batch through
+     prefetch_to_device(sharding=...) as DTensors, the first step against
+     make_train_step's from the same state and key (loss rel 1e-2,
+     gradient rel-L2 5e-2, the updated parameters nearer the single-card
+     step's than that step's own update), then three timed mesh steps (s
+     a step: median and spread, peak, K1 launches in the forwards and
+     recomputes and the Function's backward)
 Phase 3 also checks the wgmma + TMA pipeline at its edges (Sq and Skv off
 the tiles, Skv under one tile, q/k/v as views into one fused projection,
 rows whose every scaled logit is below -46; every form at each head-dim
@@ -456,6 +480,91 @@ def bf16_tol(ref) -> float:
     return 2.0 ** -7 * max(1.0, ref.float().abs().max().item())
 
 
+ATTN_PATH_LABEL = {"batch": "512x512", "serve": "512x512",
+                   "ms": "ModelScope 256x256", "svd": "SVD 576x1024",
+                   "latte": "Latte-XL 512x512", "cog": "CogVideoX-2B 480x720",
+                   "train": "training 256x256",
+                   "tp": "512x512, a rank of 2-way tensor parallelism"}
+
+
+def attention_row(dev, gen, kname, shape, path, site, one_slice) -> dict:
+    """One attention kernel row (phase 3's, and phase 29's local heads):
+    the kernel at the full shape, held against its plain version on the
+    first two batch entries (or one (b, h) slice), timed beside the plain
+    version, SDPA and its bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from vdx_torch.kernels import flash_attention as KA
+
+    B, S, H, D = shape
+
+    def randn(shape, mean=0.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=gen, device=dev) + mean).to(dtype)
+
+    static = dict(exp_impl="staticmax")
+    t0 = time.time()
+    fn, plain = ((partial(KA.flash_attention_dt, **static),
+                  partial(KA.flash_attention_dt_plain, **static))
+                 if kname == "K1" else
+                 (KA.flash_attention, KA.flash_attention_plain))
+    q, k, v = (randn((B, S, H, D)) for _ in range(3))
+    scale = D ** -0.5
+    before = KA.launch_counts()
+    out = fn(q, k, v, scale=scale)
+    # the launch on the counter the routing rule names (K1 at D = 64
+    # on the DP = 80 instance's "K1", K4 on "K4"), and on no other
+    counter = KA.counter_for("staticmax" if kname == "K1" else None,
+                             q.dtype, D, True)
+    moved = {n: c - before[n] for n, c in KA.launch_counts().items()
+             if c != before[n]}
+    if moved != {counter: 1}:
+        raise SystemExit(f"{kname} [{B},{S},{H},{D}]: launches {moved}, "
+                         f"expected one on {counter!r}")
+    # the plain version on two batch entries, or on one (b, h) slice
+    # where two entries' scores would not fit (75 GB at 17,776 tokens)
+    sl = (slice(0, 1), slice(None), slice(0, 1)) if one_slice == "head" \
+        else (slice(0, 2),)
+    ref = plain(q[sl], k[sl], v[sl], scale=scale)
+    err = (out[sl].float() - ref.float()).abs()
+    tol = bf16_tol(ref)
+    del ref
+
+    def plain_full():
+        if one_slice == "head":
+            plain(q[sl], k[sl], v[sl], scale=scale)
+            return
+        for i in range(0, 2 if one_slice else B, 2):
+            plain(q[i:i + 2], k[i:i + 2], v[i:i + 2], scale=scale)
+
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    ms = cuda_ms(lambda: fn(q, k, v, scale=scale))
+    times = {"head": B * H, True: B // 2, False: 1}[one_slice]
+    plain_ms = cuda_ms(plain_full, reps=3, warmup=1) * times
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                           scale=scale))
+    b_ms, b_by = bound(4.0 * B * H * S * S * D, 4 * q.numel() * 2,
+                       H100_BF16_FLOPS, float(B * H * S * S))  # one exp2 a score
+    label = {"K1": "flash_attention_dt staticmax",
+             "K4": "flash_attention running-max"}[kname]
+    return dict(
+        name=f"{kname} {label} [{B},{S},{H},{D}] ({site}, "
+             f"{ATTN_PATH_LABEL.get(path, f'{path}x{path}')})",
+        kernel=kname, path=path,
+        stage="step" if path == "train" else "denoise", route="cuda",
+        source="vdx_torch/csrc/flash_attention_sm90.cu",
+        replaces=("vdx/kernels/flash_attention.py:204" if kname == "K1"
+                  else "vdx/kernels/flash_attention.py:135"),
+        max_abs_err=err.max().item(), mean_abs_err=err.mean().item(),
+        tol=tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        library="F.scaled_dot_product_attention", bound_ms=b_ms,
+        bound_by=b_by, seconds=time.time() - t0,
+        note=(f"plain_ms: one (b, h) slice timed, times {B * H}"
+              if one_slice == "head" else
+              f"plain_ms: one two-entry slice timed, times {B // 2}"
+              if one_slice else ""))
+
+
 def check_kernels(dev):
     """Phase 3: each kernel on the full main-path shape of its path (the
     512x512 DDIM call or the 768x768 Euler call), its plain version on the
@@ -504,74 +613,8 @@ def check_kernels(dev):
         ("K1", (16, 1024, 8, 40), "train", "level-0 self-attn, a training "
          "micro-batch", False),
     )
-    path_label = {"batch": "512x512", "serve": "512x512",
-                  "ms": "ModelScope 256x256", "svd": "SVD 576x1024",
-                  "latte": "Latte-XL 512x512", "cog": "CogVideoX-2B 480x720",
-                  "train": "training 256x256"}
-    static = dict(exp_impl="staticmax")
-    for kname, (B, S, H, D), path, site, one_slice in attn_cases:
-        t0 = time.time()
-        fn, plain = ((partial(KA.flash_attention_dt, **static),
-                      partial(KA.flash_attention_dt_plain, **static))
-                     if kname == "K1" else
-                     (KA.flash_attention, KA.flash_attention_plain))
-        q, k, v = (randn((B, S, H, D)) for _ in range(3))
-        scale = D ** -0.5
-        before = KA.launch_counts()
-        out = fn(q, k, v, scale=scale)
-        # the launch on the counter the routing rule names (K1 at D = 64
-        # on the DP = 80 instance's "K1", K4 on "K4"), and on no other
-        counter = KA.counter_for("staticmax" if kname == "K1" else None,
-                                 q.dtype, D, True)
-        moved = {n: c - before[n] for n, c in KA.launch_counts().items()
-                 if c != before[n]}
-        if moved != {counter: 1}:
-            raise SystemExit(f"{kname} [{B},{S},{H},{D}]: launches {moved}, "
-                             f"expected one on {counter!r}")
-        # the plain version on two batch entries, or on one (b, h) slice
-        # where two entries' scores would not fit (75 GB at 17,776 tokens)
-        sl = (slice(0, 1), slice(None), slice(0, 1)) if one_slice == "head" \
-            else (slice(0, 2),)
-        ref = plain(q[sl], k[sl], v[sl], scale=scale)
-        err = (out[sl].float() - ref.float()).abs()
-        tol = bf16_tol(ref)
-        del ref
-
-        def plain_full():
-            if one_slice == "head":
-                plain(q[sl], k[sl], v[sl], scale=scale)
-                return
-            for i in range(0, 2 if one_slice else B, 2):
-                plain(q[i:i + 2], k[i:i + 2], v[i:i + 2], scale=scale)
-
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        ms = cuda_ms(lambda: fn(q, k, v, scale=scale))
-        times = {"head": B * H, True: B // 2, False: 1}[one_slice]
-        plain_ms = cuda_ms(plain_full, reps=3, warmup=1) * times
-        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                               scale=scale))
-        b_ms, b_by = bound(4.0 * B * H * S * S * D, 4 * q.numel() * 2,
-                                   H100_BF16_FLOPS,
-                                   float(B * H * S * S))  # one exp2 a score
-        label = {"K1": "flash_attention_dt staticmax",
-                 "K4": "flash_attention running-max"}[kname]
-        rows.append(dict(
-            name=f"{kname} {label} [{B},{S},{H},{D}] ({site}, "
-                 f"{path_label.get(path, f'{path}x{path}')})",
-            kernel=kname, path=path,
-            stage="step" if path == "train" else "denoise", route="cuda",
-            source="vdx_torch/csrc/flash_attention_sm90.cu",
-            replaces=("vdx/kernels/flash_attention.py:204" if kname == "K1"
-                      else "vdx/kernels/flash_attention.py:135"),
-            max_abs_err=err.max().item(), mean_abs_err=err.mean().item(),
-            tol=tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-            library="F.scaled_dot_product_attention", bound_ms=b_ms,
-            bound_by=b_by, seconds=time.time() - t0,
-            note=(f"plain_ms: one (b, h) slice timed, times {B * H}"
-                  if one_slice == "head" else
-                  f"plain_ms: one two-entry slice timed, times {B // 2}"
-                  if one_slice else "")))
-        del q, k, v, qt, kt, vt, out
+    for kname, shape, path, site, one_slice in attn_cases:
+        rows.append(attention_row(dev, gen, kname, shape, path, site, one_slice))
         torch.cuda.empty_cache()
 
     # the launch plan: K2 where a cluster holds a stripe with two CTAs an
@@ -3981,13 +4024,423 @@ def run_frame_shards(dev) -> tuple:
     return path, summary
 
 
+# phase 29: the rest of the mesh on a one-rank NCCL mesh (window
+# parallelism, the data axis, the train step over the mesh) and two ranks
+# of 2-way tensor parallelism on the one card over gloo (NCCL refuses two
+# ranks on one card; gloo carries the CUDA tensors through the host)
+MESH_TRAIN_STEPS = 4  # the first is compared with the single-card step
+MESH_TP_SEED = 5  # the tensor-parallel UNet's random weights
+MESH_TP_LIMIT = 420  # s for the two ranks to start, build and run
+# K1 at the local heads of 2-way TP at 512 (8 heads -> 4 a rank)
+MESH_TP_SHAPES = ((32, 4096, 4, 40), (32, 1024, 4, 80))
+
+
+def tp_rank(rank: int, store: str, out: str, config, policy, device: str) -> None:
+    """One rank of phase 29 (e): a gloo group of two on the one card, the
+    UNetMotion of ``config`` cut by ``tensor_parallel`` over a 1x1x2 mesh,
+    one counted forward of the saved inputs (its seconds include the first
+    call's set-up); rank 0 writes its eps, launches, seconds and peak under
+    ``out``."""
+    sys.path.insert(0, str(ROOT))
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from vdx_torch.kernels import _lib
+    from vdx_torch.models.unet_motion import UNetMotion
+    from vdx_torch.parallel.mesh import make_mesh
+    from vdx_torch.parallel.tensor_parallel import tensor_parallel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+        dev = torch.device("cuda", 0)
+        _lib.lib()  # the parent's build, cached by source hash
+    dist.init_process_group("gloo", init_method=f"file://{store}", world_size=2,
+                            rank=rank, timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = make_mesh(1, 1, 2)
+        unet = build_random(lambda: UNetMotion(config, policy), dev, MESH_TP_SEED)
+        tensor_parallel(unet, mesh)
+        heads = sorted({m.heads for m in unet.modules()
+                        if type(m).__name__ == "Attention"})
+        args = [t.to(dev) for t in torch.load(pathlib.Path(out) / "tp_inputs.pt")]
+        cuda = dev.type == "cuda"
+        with torch.inference_mode():
+            if cuda:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            reset_counters()
+            t0 = time.time()
+            with mesh.bind():
+                eps = unet(*args)
+            if cuda:
+                torch.cuda.synchronize()
+            secs = time.time() - t0
+            launches = {k: int(n) for k, n in read_counters().items()}
+        if rank == 0:
+            torch.save({"eps": eps.cpu(), "launches": launches, "secs": secs,
+                        "peak": torch.cuda.max_memory_allocated() if cuda else 0,
+                        "split": len(unet.tp_layout), "heads": heads},
+                       pathlib.Path(out) / "tp_rank0.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def run_tp_ranks(unet_local, model_in, t_b, ctx, policy) -> dict:
+    """Phase 29 (e): two processes on the one card (tp_rank) run the
+    tensor-parallel UNet forward; -> rank 0's record with its rel-L2
+    against ``unet_local``'s call on the same weights and inputs."""
+    import shutil
+
+    import torch
+    import torch.multiprocessing as mp
+
+    d = SCRATCH / "mesh_tp"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    torch.save([model_in.cpu(), t_b.cpu(), ctx.cpu()], d / "tp_inputs.pt")
+    with torch.inference_mode():
+        eps_l = unet_local(model_in, t_b, ctx).float().cpu()
+    free_card("mesh_axes")
+    t0 = time.time()
+    procs = mp.start_processes(
+        tp_rank, args=(str(d / "pg"), str(d), unet_local.config, policy,
+                       model_in.device.type),
+        nprocs=2, join=False, start_method="spawn")
+    try:
+        while not procs.join(timeout=5):
+            if time.time() - t0 > MESH_TP_LIMIT:
+                raise SystemExit(f"[mesh_axes] (e) the two ranks still run "
+                                 f"after {MESH_TP_LIMIT} s")
+    finally:
+        for p in procs.processes:
+            if p.is_alive():
+                p.kill()
+    rec = torch.load(d / "tp_rank0.pt")
+    rec["rel_l2"] = rel_l2(rec["eps"].float(), eps_l)
+    rec["wall_s"] = time.time() - t0
+    del rec["eps"]
+    shutil.rmtree(d, ignore_errors=True)
+    return rec
+
+
+def run_mesh_axes(dev) -> tuple:
+    """Phase 29: the rest of the mesh at full width in bf16 with seeded
+    random weights, on a one-rank NCCL mesh (a process group of one over
+    a file under SCRATCH). (a) Window parallelism: phase 18's call (32
+    frames at 512x512, ContextConfig(), 25 DDIM steps) through the
+    sequential windows and through make_windowed_apply(mesh=) over the
+    one-rank frames axis (swapped in as phase 28 swaps its apply:
+    frame_shards > 1 needs as many ranks): latents and frames equal bit
+    for bit, the launches equal. (b) The data axis: run_batched_experiments
+    on two grid configs at 512 (25 DDIM steps) with and without
+    mesh=make_mesh(1, 1, 1): the PNG and GIF files byte for byte, s a
+    video, launches. (d) K1 at the local heads of 2-way TP against its
+    plain version, SDPA and its bound. (e) Two ranks of 2-way TP on the
+    one card over gloo: the UNet forward at 512 against the local call.
+    (c) Phase 27's training setting (256x256, bf16, batch 2 in two
+    micro-batches, remat, EMA): param_sharding_rules all replicated at one
+    rank, the batch through prefetch_to_device(sharding=...), the mesh
+    step against the single-card step from the same state and key (loss,
+    gradient rel-L2, updated parameters), then timed mesh steps. -> (the
+    (d) rows, paths, the phase's summary)"""
+    import dataclasses
+    import datetime
+    import shutil
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from vdx_torch import harness as TH
+    from vdx_torch.core import rng
+    from vdx_torch.core.dtypes import BF16_POLICY
+    from vdx_torch.data import (FrameFolderDataset, VideoClipLoader,
+                                encode_clips_to_latents, prefetch_to_device)
+    from vdx_torch.models.unet_motion import UNetMotion, UNetMotionConfig
+    from vdx_torch.parallel import train as TT
+    from vdx_torch.parallel.distributed import health_check, initialize
+    from vdx_torch.parallel.mesh import (batch_sharding, make_mesh,
+                                         param_sharding_rules, video_sharding)
+    from vdx_torch.parallel.tensor_parallel import tensor_parallel
+    from vdx_torch.pipelines import AnimateDiffPipeline, ContextConfig
+    from vdx_torch.pipelines import context as C
+
+    t_phase = time.time()
+    held = free_card("mesh_axes")
+    SCRATCH.mkdir(parents=True, exist_ok=True)
+    store = SCRATCH / "mesh_axes_pg"
+    store.unlink(missing_ok=True)
+    initialize(f"file://{store}", 1, 0, device=dev.type,
+               timeout=datetime.timedelta(seconds=300))
+    fs = FAMILY_BUILD.get("mesh_axes", {})
+    summary, paths = {"held_before": held}, {}
+    try:
+        mesh = make_mesh(1, 1, 1)
+        log(f"[mesh_axes] process group: {dist.get_backend()}, world "
+            f"{health_check()}, mesh {mesh.shape} on {mesh.device_type}")
+
+        # (a) window parallelism: phase 18's call, sequential then sharded
+        cfg = ContextConfig()
+        pipe = AnimateDiffPipeline.with_random_params(
+            seed=0, context=cfg, **({"policy": BF16_POLICY} | fs.get("pipe", {})))
+        F_, H = CONTEXT_FRAMES, WORKLOAD["height"]
+        kw = dict(WORKLOAD, scheduler="ddim", num_frames=F_)
+        pipe(PROMPT, **dict(kw, num_inference_steps=2))  # warm-up
+        n_windows = len(C.window_starts(F_, cfg.frames, cfg.stride))
+        runs = {}
+        for label in ("sequential", "sharded"):
+            if label == "sharded":
+                pipe.mesh, pipe._window_parallel = mesh, True
+            C.window_evals.update(sequential=0, sharded=0)
+            keep = {}
+            secs, frames, lat_finite, by_stage, peak = timed_call(
+                pipe, f"mesh_axes {label} windows", keep=keep,
+                num_inference_steps=TIMED_STEPS, **kw)
+            check_frames(frames, (F_, H, H, 3), lat_finite, f"windows {label}")
+            evals = dict(C.window_evals)
+            if evals != {**dict.fromkeys(C.window_evals, 0),
+                         label: n_windows * TIMED_STEPS}:
+                raise SystemExit(f"[mesh_axes] (a) {label}: window evaluations "
+                                 f"{evals}, expected {n_windows * TIMED_STEPS} "
+                                 f"{label}")
+            runs[label] = dict(secs=secs, frames=frames, latents=keep["latents"],
+                               by_stage=by_stage, peak=peak, evals=evals)
+        seq, par = runs["sequential"], runs["sharded"]
+        lat_equal = torch.equal(seq["latents"], par["latents"])
+        frames_equal = bool(np.array_equal(seq["frames"], par["frames"]))
+        den_s, den_p = seq["by_stage"]["denoise"], par["by_stage"]["denoise"]
+        want_k1 = 10 * n_windows * TIMED_STEPS
+        log(f"[mesh_axes] (a) {F_} frames in {n_windows} windows, "
+            f"{TIMED_STEPS} DDIM steps: "
+            f"window-parallel over the one-rank frames axis {par['secs']:.3f}s "
+            f"peak {par['peak'] / 2**30:.2f} GiB against the sequential "
+            f"windows' {seq['secs']:.3f}s peak {seq['peak'] / 2**30:.2f} GiB; "
+            f"latents bit-equal {lat_equal}, frames equal {frames_equal}; "
+            f"window evaluations {par['evals']}; denoise launches "
+            f"{nonzero(den_p)} (sequential {nonzero(den_s)})")
+        if not (lat_equal and frames_equal):
+            raise SystemExit("[mesh_axes] (a) the window-parallel call differs "
+                             "from the sequential one")
+        if den_p != den_s or den_p["K1"] != want_k1:
+            raise SystemExit(f"[mesh_axes] (a) denoise launches {den_p}, "
+                             f"sequential {den_s}, expected K1 {want_k1}")
+        summary["window_parallel"] = dict(
+            secs=par["secs"], secs_sequential=seq["secs"], peak=par["peak"],
+            peak_sequential=seq["peak"], windows=n_windows,
+            launches=nonzero(den_p), latents_bit_equal=lat_equal,
+            frames_equal=frames_equal)
+        paths["window_parallel"] = dict(
+            secs=par["secs"], by_stage=par["by_stage"], peak=par["peak"],
+            frames=F_, steps=TIMED_STEPS, chunks=F_ // WORKLOAD["decode_chunk"])
+        del runs, seq, par
+        pipe.mesh, pipe._window_parallel = None, False
+        free_card("mesh_axes")
+
+        # (b) the data axis: the grid runner with and without the mesh
+        bp = sibling_of(pipe)
+        plan = TH.plan_grid_search(phase="cfg", video_filter="corgi_beach")
+        configs = [dataclasses.replace(c, **fs.get("study", {}))
+                   for c in plan if c.guidance_scale in STUDY_CFGS]
+        warm = [dataclasses.replace(c, num_inference_steps=2) for c in configs]
+        TH.generate_batch(bp, warm, "ddim", mesh=mesh)
+        data = {}
+        for label, m in (("plain", None), ("mesh", mesh)):
+            out = SCRATCH / f"mesh_data_{label}"
+            shutil.rmtree(out, ignore_errors=True)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counters()
+            t0 = time.time()
+            TH.run_batched_experiments(bp, configs, out, scheduler="ddim",
+                                       mesh=m, max_batch=len(configs),
+                                       decode_chunk=WORKLOAD["decode_chunk"],
+                                       log=lambda *a: None)
+            torch.cuda.synchronize()
+            data[label] = dict(secs=time.time() - t0, launches=read_counters(),
+                               peak=torch.cuda.max_memory_allocated(),
+                               files={p.relative_to(out): p.read_bytes()
+                                      for p in sorted(out.rglob("*")) if p.is_file()})
+            shutil.rmtree(out, ignore_errors=True)
+        same = data["plain"]["files"] == data["mesh"]["files"]
+        n_files = len(data["mesh"]["files"])
+        per_video = {k: d["secs"] / len(configs) for k, d in data.items()}
+        k1 = {k: d["launches"]["K1"] for k, d in data.items()}
+        log(f"[mesh_axes] (b) run_batched_experiments, {len(configs)} configs "
+            f"at {configs[0].height}x{configs[0].width}x{configs[0].num_frames}, "
+            f"{configs[0].num_inference_steps} DDIM steps: s a video with the "
+            f"one-rank data axis {per_video['mesh']:.3f} against "
+            f"{per_video['plain']:.3f} without; {n_files} files byte for byte "
+            f"equal {same}; launches {nonzero(data['mesh']['launches'])} "
+            f"(without the mesh {nonzero(data['plain']['launches'])})")
+        want = 10 * configs[0].num_inference_steps
+        if not same or n_files != len(configs) * (configs[0].num_frames + 2):
+            raise SystemExit("[mesh_axes] (b) the data axis's artifacts differ")
+        if k1 != {"plain": want, "mesh": want}:
+            raise SystemExit(f"[mesh_axes] (b) K1 launches {k1}, expected {want}")
+        summary["data_axis"] = dict(
+            s_per_video=per_video, files=n_files, files_equal=same,
+            launches={k: nonzero(d["launches"]) for k, d in data.items()},
+            peak={k: d["peak"] for k, d in data.items()})
+        del bp, data
+        free_card("mesh_axes")
+
+        # (d) K1 at the local heads of 2-way TP
+        gen = torch.Generator(device=dev).manual_seed(29)
+        rows = [attention_row(dev, gen, "K1", shape, "tp", site, False)
+                for shape, site in zip(MESH_TP_SHAPES, (
+                    "level-0 self-attn, local heads",
+                    "level-1 self-attn, local heads"))]
+        for r in rows:
+            log(f"[mesh_axes] (d) {r['name']}: max_abs_err="
+                f"{r['max_abs_err']:.3e} tol={r['tol']:.3e} kernel_ms="
+                f"{r['ms']:.4f} plain_ms={r['plain_ms']:.4f} library_ms="
+                f"{r['library_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
+                f"({r['bound_by']})")
+        bad = [r["name"] for r in rows if not r["max_abs_err"] <= r["tol"]]
+        if bad:
+            raise SystemExit(f"[mesh_axes] (d) kernels disagree: {bad}")
+        torch.cuda.empty_cache()
+
+        # (e) two ranks of 2-way TP on the one card, over gloo
+        local = build_random(lambda: UNetMotion(
+            fs.get("unet", UNetMotionConfig()), pipe.policy), dev, MESH_TP_SEED)
+        model_in, t_b, ctx = first_step_inputs(pipe)
+        tp = run_tp_ranks(local, model_in, t_b, ctx, local.policy)
+        del local, model_in, t_b, ctx
+        free_card("mesh_axes")
+        log(f"[mesh_axes] (e) UNetMotion 16x512x512 CFG batch, 2-way TP on "
+            f"one card (gloo): rel_l2 against the local call "
+            f"{tp['rel_l2']:.3e} (bar {REL_L2_TOL}); {tp['split']} parameters "
+            f"split, attention heads a rank {tp['heads']}; rank 0: "
+            f"{tp['secs']:.3f}s a first UNet call (the collectives through "
+            f"the host), peak {tp['peak'] / 2**30:.2f} GiB, launches "
+            f"{nonzero(tp['launches'])}; {tp['wall_s']:.1f}s with start-up")
+        if not tp["rel_l2"] < REL_L2_TOL or tp["launches"]["K1"] != 10:
+            raise SystemExit(f"[mesh_axes] (e) the TP forward: rel_l2 "
+                             f"{tp['rel_l2']}, launches {tp['launches']}")
+        summary["tensor_parallel"] = {k: v for k, v in tp.items()
+                                      if k != "launches"} | {
+            "launches": nonzero(tp["launches"])}
+        paths["tp"] = dict(secs=tp["secs"], by_stage={"denoise": tp["launches"]},
+                           peak=tp["peak"], frames=16, steps=1, chunks=0)
+
+        # (c) the train step over the mesh against the single-card step
+        root = SCRATCH / "train_clips"
+        write_train_clips(root)
+        unet = pipe.unet
+        ds = FrameFolderDataset(root, clip_frames=TRAIN_CLIP,
+                                size=(TRAIN_SIZE, TRAIN_SIZE))
+        loader = VideoClipLoader(ds, batch_size=TRAIN_BATCH, seed=0)
+        ctx1 = pipe.encode_prompt(PROMPT)[1:].clone()
+        tctx = ctx1.expand((TRAIN_BATCH,) + tuple(ctx1.shape[1:])).contiguous()
+        host = [{"latents": encode_clips_to_latents(pipe.vae, b["pixels"]).cpu(),
+                 "context": tctx.cpu()}
+                for b in prefetch_to_device(iter(loader), dev)]
+        params = dict(unet.named_parameters())
+        p0 = {n: p.detach().clone() for n, p in params.items()}
+        key = rng.prng_key(1)
+        state, opt = TT.init_train_state(unet, optimizer=TT.make_optimizer(TRAIN_LR),
+                                         ema=True)
+        step = TT.make_train_step(unet, opt, remat=True, grad_accum=2,
+                                  ema_decay=TRAIN_EMA, return_grads=True)
+        first = {k: v.to(dev) for k, v in host[0].items()}
+        state, m1 = step(state, first, key)
+        loss1, g1 = float(m1["loss"]), m1["grads"]
+        p1 = {n: p.detach().clone() for n, p in params.items()}
+        del state, step, m1, first
+        with torch.no_grad():
+            for n, p in params.items():
+                p.copy_(p0[n])
+        rules = param_sharding_rules(unet, mesh)
+        replicated = all(d is None for d in rules.values())
+        tensor_parallel(unet, mesh)
+        if not replicated or unet.tp_layout:
+            raise SystemExit("[mesh_axes] (c) a one-rank mesh split parameters")
+        sharding = {"latents": video_sharding(mesh), "context": batch_sharding(mesh)}
+        batches = prefetch_to_device(
+            iter([host[i % len(host)] for i in range(MESH_TRAIN_STEPS)]),
+            sharding=sharding)
+        state, opt = TT.init_train_state(unet, optimizer=TT.make_optimizer(TRAIN_LR),
+                                         ema=True)
+        mstep = TT.make_mesh_train_step(unet, opt, mesh, remat=True, grad_accum=2,
+                                        ema_decay=TRAIN_EMA, return_grads=True)
+        b0 = next(batches)
+        if type(b0["latents"]).__name__ != "DTensor":
+            raise SystemExit("[mesh_axes] (c) the batch is not laid out on the mesh")
+        state, mm = mstep(state, b0, key)
+        loss_m = float(mm["loss"])
+        loss_rel = abs(loss_m - loss1) / abs(loss1)
+        grad_rel = global_rel(mm["grads"], g1)
+        upd = math.sqrt(sum(float(((params[n].detach().float() - p1[n].float())
+                                   ** 2).sum()) for n in params))
+        own = math.sqrt(sum(float(((p1[n].float() - p0[n].float()) ** 2).sum())
+                            for n in params))
+        upd_rel = upd / own
+        del mm, g1, p0, p1
+        torch.cuda.empty_cache()
+        log(f"[mesh_axes] (c) the mesh step against the single-card step "
+            f"(same state and key): loss {loss_m:.6f} / {loss1:.6f} rel "
+            f"{loss_rel:.3e} (bar {TRAIN_LOSS_REL}), gradient rel-L2 "
+            f"{grad_rel:.3e} (bar {TRAIN_GRAD_REL}), the updated parameters "
+            f"{upd:.4e} from the single-card step's, {upd_rel:.3f} of its own "
+            f"update {own:.4e} (bar 1: AdamW's first step is +-lr an element)")
+        if not (loss_rel <= TRAIN_LOSS_REL and grad_rel <= TRAIN_GRAD_REL
+                and upd_rel < 1.0):
+            raise SystemExit("[mesh_axes] (c) the mesh step is off the "
+                             "single-card step")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters()
+        fn0 = fn_backward_calls()
+        secs, losses = [], [loss_m]
+        for i, b in enumerate(batches):
+            key, sub = rng.split(key)
+            t0 = time.time()
+            state, m = mstep(state, b, sub)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            secs.append(time.time() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        launches = add_counts([read_counters()])
+        fns = {k: n - fn0[k] for k, n in fn_backward_calls().items()}
+        med = sorted(secs)[len(secs) // 2]
+        n_k1 = 2 * 2 * TRAIN_K1_PER_CALL * len(secs)  # forward + recompute
+        log(f"[mesh_axes] (c) {len(secs)} timed mesh steps: s a step {secs} "
+            f"(median {med:.3f}, spread {min(secs):.3f}-{max(secs):.3f}), "
+            f"losses {losses}, peak {peak} ({peak / 2**30:.2f} GiB); launches "
+            f"{launches} (forward + recompute), Functions' backward {fns}")
+        if (not all(math.isfinite(x) for x in losses) or launches["K1"] != n_k1
+                or fns["K1 Fn"] != n_k1 // 2 or not launches["K2"]):
+            raise SystemExit(f"[mesh_axes] (c) mesh steps: losses {losses}, "
+                             f"launches {launches}, Functions {fns}; expected "
+                             f"K1 {n_k1}")
+        summary["train"] = dict(
+            loss=loss_m, loss_single_card=loss1, loss_rel=loss_rel,
+            grad_rel_l2=grad_rel, update_rel=upd_rel, s_per_step=secs,
+            median_s=med, max_memory_allocated=peak, launches=launches,
+            functions_backward=fns, all_replicated=replicated)
+        del state, mstep, batches, host, unet, params, pipe
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+    summary["phase_s"] = time.time() - t_phase
+    log(f"[mesh_axes] phase done ({summary['phase_s']:.1f}s)")
+    return rows, paths, summary
+
+
 def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("frame_shards",),
-                    help="build the kernels and run this phase alone (28), "
-                         "then the same last line")
+    ap.add_argument("--only", choices=("frame_shards", "mesh_axes"),
+                    help="build the kernels and run this phase alone "
+                         "(frame_shards: 28, mesh_axes: 29), then the same "
+                         "last line")
     args = ap.parse_args(argv)
     faulthandler.dump_traceback_later(HANG_BUDGET_S, exit=True)
     t_start = time.time()
@@ -4045,6 +4498,27 @@ def main(argv=None) -> int:
             "frame_shards": {"timed_call_s": path["secs"],
                              "max_memory_allocated": path["peak"],
                              "launches_by_stage": path["by_stage"]}},
+            "build_s": info["build_s"], "total_s": time.time() - t_start}))
+        log(smi)
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        faulthandler.cancel_dump_traceback_later()
+        return 0
+    if args.only == "mesh_axes":
+        mesh_rows, mesh_paths, mesh_axes = run_mesh_axes(dev)
+        runs = {p: d["by_stage"] for p, d in mesh_paths.items()}
+        log(json.dumps({"kernels": [
+            {k: r[k] for k in ("name", "route", "source", "replaces")}
+            | {"launches": runs[r["path"]][r["stage"]][r["kernel"]],
+               "path": r["path"], "stage": r["stage"]}
+            | {k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                 "library_ms")}
+            | {"bound_by": "bytes" if r["bound_by"] == "bytes" else "operations"}
+            for r in mesh_rows], "mesh_axes": mesh_axes, "paths": {
+            p: {"timed_call_s": d["secs"], "max_memory_allocated": d["peak"],
+                "launches_by_stage": d["by_stage"]}
+            for p, d in mesh_paths.items()},
             "build_s": info["build_s"], "total_s": time.time() - t_start}))
         log(smi)
         log(json.dumps({"ok": True, "device": {
@@ -4259,6 +4733,14 @@ def main(argv=None) -> int:
     paths["frame_shards"], frame_shards = run_frame_shards(dev)
     torch.cuda.empty_cache()
 
+    # 29. the rest of the mesh: window parallelism, the data axis and the
+    # train step on a one-rank NCCL mesh, K1 at the local heads of 2-way
+    # TP, two TP ranks on the card over gloo
+    mesh_rows, mesh_paths, mesh_axes = run_mesh_axes(dev)
+    rows += mesh_rows
+    paths.update(mesh_paths)
+    torch.cuda.empty_cache()
+
     # Counts are per kernel at every shape, within the row's stage of its
     # path's run: the denoise loop of a timed call (per step), its VAE
     # encode and decode (per chunk), the GN dispatch at 2560 channels, the
@@ -4311,6 +4793,7 @@ def main(argv=None) -> int:
         "cogvideox": cogvideox,
         "train": train,
         "frame_shards": frame_shards,
+        "mesh_axes": mesh_axes,
         # every flash attention counter (kernels.flash_attention
         # .launch_counts) with its launches at phase 3's edges
         "edge_launches": edge_launches,

@@ -27,7 +27,8 @@ timeout, the ranks joined within a limit).
 * The rejections without a process group: ``frame_shards`` raises, an
   unknown ``seq_impl`` raises ValueError, CogVideoX keeps vdx's
   ValueError, and context windows with ``frame_shards`` (window
-  parallelism) raise NotImplementedError.
+  parallelism, tests/test_torch_port_mesh_axes.py) raise the same
+  RuntimeError, for the mesh they build.
 
 The worker functions import no jax: the spawned ranks import this module.
 """
@@ -340,6 +341,7 @@ def test_frame_shards_rejections():
         CogVideoXPipeline(CogVideoXConfig.tiny(), CausalVAEConfig.tiny(),
                           t5_config=T5Config.tiny(), device="cpu",
                           frame_shards=2)
-    with pytest.raises(NotImplementedError, match="window parallelism"):
+    # window parallelism builds its mesh, which needs the process group
+    with pytest.raises(RuntimeError, match="process group"):
         AnimateDiffPipeline(**_pipe_kwargs(
             "ad", frame_shards=2, context=ContextConfig(frames=8, stride=4)))

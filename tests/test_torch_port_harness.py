@@ -285,7 +285,8 @@ def _check_rejections(tiny, tmp_path):
     for pipe in (_sibling(tiny, pab=PABConfig()), _sibling(tiny, skip=SkipConfig())):
         with pytest.raises(ValueError, match="turbo modes"):
             TH.run_batched_experiments(pipe, configs, tmp_path / "x", **QUIET)
-    with pytest.raises(NotImplementedError, match="item 14"):
+    # the data axis takes a Mesh (tests/test_torch_port_mesh_axes.py)
+    with pytest.raises(TypeError, match="Mesh"):
         TH.run_batched_experiments(tiny, configs, tmp_path / "x", mesh=object(), **QUIET)
     with pytest.raises(ValueError, match="group_configs"):
         TH.denoise_batch(tiny, [configs[0], dataclasses.replace(

@@ -795,6 +795,12 @@ _DENOISER_RULES = {"UNetMotionConfig": unet_motion_rules,
                    "CogVideoXConfig": cogvideox_dit_rules}
 
 
+def rules_for(denoiser) -> Rules:
+    """The conversion rules of a built denoiser module (by its config's
+    class: UNetMotion, UNet3D, the SVD UNet, Latte or CogVideoX)."""
+    return _DENOISER_RULES[type(denoiser.config).__name__](denoiser.config)
+
+
 def flatten_params(params: Mapping, prefix: str = "") -> Dict[str, object]:
     """Nested parameter mapping -> {slash/path: leaf}, dropping a leading
     'params' collection."""

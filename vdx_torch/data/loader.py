@@ -12,7 +12,9 @@ card (port of vdx/data/loader.py).
   permutation of the (video, start) index), decoding on a thread pool.
 * :func:`prefetch_to_device` copies batches from pinned host memory to an
   explicit device with ``non_blocking`` on a background thread, so the
-  copy overlaps the train step.
+  copy overlaps the train step; with a ``sharding`` (parallel/mesh.py)
+  each batch arrives laid out on the mesh as DTensors, each rank holding
+  only its shard (vdx's ``device_put`` with a NamedSharding).
 * :func:`encode_clips_to_latents` folds frames into the batch for the VAE
   encoder and restores the video layout.
 """
@@ -101,19 +103,33 @@ class VideoClipLoader:
                 yield {"pixels": np.stack(clips)}
 
 
-def prefetch_to_device(iterator, device: Union[str, torch.device],
-                       size: int = 2) -> Iterator[dict]:
+def prefetch_to_device(iterator, device: Union[str, torch.device, None] = None,
+                       size: int = 2, sharding=None) -> Iterator[dict]:
     """Batches of ``iterator`` (dicts of arrays or tensors) on ``device``,
     up to ``size`` ahead of the consumer: a background thread pins each
     host array (on a CUDA device) and copies it with ``non_blocking``.
-    An exception in the producer is raised to the consumer."""
-    device = torch.device(device)
+    ``sharding``: a ``Sharding`` for every key, or {key: Sharding}; each
+    array becomes a DTensor of its global shape whose local part is this
+    rank's shard on the mesh's device (``mesh.place``: each rank cuts its
+    own slice of the batch every rank loaded, with no communication, so
+    the thread runs no collective). An exception in the producer is raised
+    to the consumer."""
+    if sharding is None and device is None:
+        raise ValueError("prefetch_to_device needs a device or a sharding")
+    if sharding is not None:
+        from vdx_torch.parallel.mesh import place
+    else:
+        device = torch.device(device)
     q: "queue.Queue" = queue.Queue(maxsize=size)
     end = object()
 
     def put(batch):
         out = {}
         for k, v in batch.items():
+            if sharding is not None:
+                sh = sharding[k] if isinstance(sharding, dict) else sharding
+                out[k] = place(v, sh, device)
+                continue
             t = torch.as_tensor(v)
             if device.type == "cuda":
                 t = t.pin_memory()

@@ -16,6 +16,19 @@ reference's artifacts for it while the next batch runs.
 PAB and skip mode keep per-request state the batch does not carry: the
 batched runner raises under them, as vdx's does. Under ``context`` the
 batch runs the UNet over the whole clip, as vdx's batched program does.
+
+The data axis (vdx's inputs placed as ``P("data")``): with ``mesh=``,
+each chunk of N experiments splits over the mesh's ``data`` axis, data
+index d running experiments [d N/data, (d + 1) N/data) through the same
+loop, and the latents or frames are all-gathered back in config order on
+every rank. A chunk the axis does not divide raises ValueError (vdx's
+``device_put`` fails). Every rank of the mesh calls the runner (SPMD, as
+torchrun starts them). The mesh's first rank reads the resume markers
+and sends every rank the list of experiments left to run, so all run the
+same chunks whatever their own view of the files; it alone writes each
+experiment's artifacts, once. A failure on that rank (reading the
+markers, writing the files) is sent on and raised on every rank, so no
+rank waits for it in the next collective.
 """
 
 from __future__ import annotations
@@ -25,10 +38,12 @@ from pathlib import Path
 from typing import List, Sequence
 
 import torch
+import torch.distributed as dist
 
 from vdx_torch.core import rng
 from vdx_torch.harness.config import ExperimentConfig
 from vdx_torch.harness.grid import save_experiment
+from vdx_torch.parallel.mesh import Mesh, all_gather, axis_index
 from vdx_torch.pipelines.base import _Request
 
 
@@ -46,13 +61,65 @@ def batch_context(pipe, configs: Sequence[ExperimentConfig]) -> torch.Tensor:
                       torch.stack([x[1] for x in ctx])])
 
 
+def _check_mesh(mesh) -> None:
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a vdx_torch.parallel.mesh.Mesh (see "
+                        f"make_mesh), got {type(mesh).__name__}")
+
+
+def _data_slice(configs: Sequence[ExperimentConfig], mesh) -> list:
+    """This rank's share of the chunk over the data axis."""
+    n = mesh.shape["data"]
+    if len(configs) % n:
+        raise ValueError(f"a chunk of {len(configs)} experiments does not "
+                         f"divide over the {n} ranks of the data axis")
+    k = len(configs) // n
+    with mesh.bind():
+        d = axis_index("data")
+    return list(configs[d * k:(d + 1) * k])
+
+
+def _on_first_rank(mesh, fn):
+    """``fn()`` -> its result on every rank: run in this process without a
+    mesh, else on the first rank and broadcast. An exception there is
+    raised on every rank (there as it is, elsewhere as a RuntimeError)."""
+    if mesh is None:
+        return fn()
+    box, err = [None, None], None
+    if dist.get_rank() == 0:
+        try:
+            box[0] = fn()
+        except Exception as e:  # raised below, after the others heard of it
+            err, box[1] = e, repr(e)
+    dist.broadcast_object_list(box, src=0)
+    if err is not None:
+        raise err
+    if box[1] is not None:
+        raise RuntimeError(f"the mesh's first rank failed: {box[1]}")
+    return box[0]
+
+
+def _gather_data(x: torch.Tensor, mesh) -> torch.Tensor:
+    with mesh.bind():
+        return all_gather(x, "data", dim=0)
+
+
 def denoise_batch(pipe, configs: Sequence[ExperimentConfig],
-                  scheduler: str = "ddim", context=None) -> torch.Tensor:
+                  scheduler: str = "ddim", context=None,
+                  mesh=None) -> torch.Tensor:
     """The denoise loop of N experiments of one group as one batch ->
     their final latents [N, F, h, w, C] on the pipeline's device.
     ``context``: :func:`batch_context` of ``configs``, when the caller
     encoded the prompts already (the server does, outside its device
-    lock)."""
+    lock). ``mesh``: the batch splits over its data axis and the latents
+    come back gathered (``context`` must then be None)."""
+    _check_mesh(mesh)
+    if mesh is not None:
+        if context is not None:
+            raise ValueError("denoise_batch over a mesh encodes its own "
+                             "share of the prompts: pass context=None")
+        return _gather_data(denoise_batch(pipe, _data_slice(configs, mesh),
+                                          scheduler), mesh)
     if getattr(pipe, "pab", None) is not None or getattr(pipe, "skip", None) is not None:
         raise ValueError(
             "the batched runner runs its own denoise loop and does not "
@@ -79,9 +146,16 @@ def denoise_batch(pipe, configs: Sequence[ExperimentConfig],
 
 
 def generate_batch(pipe, configs: Sequence[ExperimentConfig],
-                   scheduler: str = "ddim", decode_chunk: int = 4) -> torch.Tensor:
+                   scheduler: str = "ddim", decode_chunk: int = 4,
+                   mesh=None) -> torch.Tensor:
     """N experiments of one group -> uint8 frames [N, F, H, W, 3] on the
-    pipeline's device, returned once the work is queued (no host sync)."""
+    pipeline's device, returned once the work is queued (no host sync).
+    ``mesh``: each data index denoises and decodes its share, and the
+    frames come back gathered."""
+    _check_mesh(mesh)
+    if mesh is not None:
+        return _gather_data(generate_batch(pipe, _data_slice(configs, mesh),
+                                           scheduler, decode_chunk), mesh)
     latents = denoise_batch(pipe, configs, scheduler)
     F = latents.shape[1]
     chunk = max(1, min(decode_chunk, F))
@@ -102,24 +176,31 @@ def run_batched_experiments(
 ) -> List[ExperimentConfig]:
     """Run experiments in batches of up to ``max_batch`` per group; the
     grid runner's artifacts and resume marker. Each batch's frames are
-    written while the next batch runs on the card."""
-    if mesh is not None:
-        raise NotImplementedError("sharding the batch over a device mesh "
-                                  "(the data axis) comes with the next slice "
-                                  "of the port (ROADMAP Queue 1 item 14, "
-                                  "step 8)")
+    written while the next batch runs on the card. ``mesh``: every chunk
+    splits over the data axis (:func:`generate_batch`), every rank of the
+    mesh calls this, and the mesh's first rank reads the resume markers
+    (its list of what is left is every rank's) and writes the artifacts."""
+    _check_mesh(mesh)
     output_dir = Path(output_dir)
-    output_dir.mkdir(parents=True, exist_ok=True)
 
-    todo = [c for c in configs
-            if not (output_dir / c.experiment_id / "config.json").exists()]
-    for c in configs:
-        if c not in todo:
+    def left():
+        output_dir.mkdir(parents=True, exist_ok=True)
+        return [i for i, c in enumerate(configs)
+                if not (output_dir / c.experiment_id / "config.json").exists()]
+
+    todo_ids = set(_on_first_rank(mesh, left))
+    todo = [c for i, c in enumerate(configs) if i in todo_ids]
+    for i, c in enumerate(configs):
+        if i not in todo_ids:
             log(f"  Skipping {c.experiment_id} (already exists)")
 
     def flush(frames, cfgs):
-        for arr, cfg in zip(frames.cpu().numpy(), cfgs):
-            save_experiment(arr, cfg, output_dir)
+        def write():
+            for arr, cfg in zip(frames.cpu().numpy(), cfgs):
+                save_experiment(arr, cfg, output_dir)
+
+        # every rank waits here until the files are on disk
+        _on_first_rank(mesh, write)
 
     pending = None  # (device frames [N, F, H, W, 3], configs) to write
     for (steps, F, H, W), group in group_configs(todo):
@@ -127,7 +208,8 @@ def run_batched_experiments(
             chunk_cfgs = group[start:start + max_batch]
             log(f"  Batch of {len(chunk_cfgs)} experiments @ steps={steps} "
                 f"{H}x{W}x{F}")
-            frames = generate_batch(pipe, chunk_cfgs, scheduler, decode_chunk)
+            frames = generate_batch(pipe, chunk_cfgs, scheduler, decode_chunk,
+                                    mesh=mesh)
             if pending is not None:
                 flush(*pending)
             pending = (frames, chunk_cfgs)

@@ -39,7 +39,7 @@ from vdx_torch.core.dtypes import DEFAULT_POLICY, Policy, exact_fp32_method
 from vdx_torch.nn.attention import Attention, GELUFeedForward
 from vdx_torch.nn.embeddings import (TimestepEmbedding, get_timestep_embedding,
                                      rope_3d, sinusoidal_positional_encoding)
-from vdx_torch.nn.layers import Dense
+from vdx_torch.nn.layers import Dense, PatchConv
 from vdx_torch.nn.resnet import GroupNormModule
 
 
@@ -153,8 +153,7 @@ class CogVideoXDiT(nn.Module):
         self.policy = policy
         D, p = cfg.hidden_size, cfg.patch_size
         self.patch_embed = nn.Module()
-        self.patch_embed.proj = nn.Conv2d(cfg.in_channels, D, p, stride=p,
-                                          dtype=policy.param_dtype)
+        self.patch_embed.proj = PatchConv(cfg.in_channels, D, p, policy)
         self.patch_embed.text_proj = Dense(cfg.text_dim, D, policy=policy)
         self.time_embedding = TimestepEmbedding(D, cfg.time_embed_dim, policy)
         self.transformer_blocks = nn.ModuleList([
@@ -186,9 +185,7 @@ class CogVideoXDiT(nn.Module):
 
         x = sample.to(cd).reshape(B, F_, hp, p, wp, p, C)
         x = x.permute(0, 1, 2, 4, 3, 5, 6).reshape(B, N, p * p * C)
-        proj = self.patch_embed.proj
-        vid = F.linear(x, proj.weight.to(cd).permute(0, 2, 3, 1).reshape(D, -1),
-                       proj.bias.to(cd))
+        vid = self.patch_embed.proj.linear(x)
         rope = None
         if cfg.use_rotary:
             rope = rope_3d(F_, hp, wp, D // cfg.num_heads,

@@ -44,7 +44,7 @@ from vdx_torch.core.dtypes import DEFAULT_POLICY, Policy, exact_fp32_method
 from vdx_torch.nn.attention import Attention, GELUFeedForward
 from vdx_torch.nn.embeddings import (TimestepEmbedding, get_timestep_embedding,
                                      sinusoidal_positional_encoding)
-from vdx_torch.nn.layers import Dense
+from vdx_torch.nn.layers import Dense, PatchConv
 from vdx_torch.nn.frame_shard import (_shard_axis, global_frame_pe,
                                       run_temporal_site)
 
@@ -137,8 +137,7 @@ class LatteDiT(nn.Module):
         self.policy = policy
         D, p = cfg.hidden_size, cfg.patch_size
         self.pos_embed = nn.Module()
-        self.pos_embed.proj = nn.Conv2d(cfg.in_channels, D, p, stride=p,
-                                        dtype=policy.param_dtype)
+        self.pos_embed.proj = PatchConv(cfg.in_channels, D, p, policy)
         self.adaln_single = nn.Module()
         self.adaln_single.emb = nn.Module()
         self.adaln_single.emb.timestep_embedder = TimestepEmbedding(256, D, policy)
@@ -176,9 +175,7 @@ class LatteDiT(nn.Module):
         # patchify in (p_h, p_w, C) order -> the conv's weight as a linear
         x = sample.to(cd).reshape(B, F_, hp, p, wp, p, C)
         x = x.permute(0, 1, 2, 4, 3, 5, 6).reshape(B, F_, N, p * p * C)
-        proj = self.pos_embed.proj
-        x = F.linear(x, proj.weight.to(cd).permute(0, 2, 3, 1).reshape(D, -1),
-                     proj.bias.to(cd))
+        x = self.pos_embed.proj.linear(x)
         dev = sample.device
         x = x + sinusoidal_positional_encoding(N, D, dev).to(x.dtype)[None, None]
         pos_t = global_frame_pe(F_, D, s_axis, dev).to(x.dtype)

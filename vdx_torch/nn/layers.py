@@ -64,6 +64,24 @@ class Conv2d(nn.Conv2d):
         return y.permute(0, 2, 3, 1)
 
 
+class PatchConv(nn.Conv2d):
+    """The DiTs' p x p stride-p patch embedding: a Conv2d's ``weight``
+    [D, C, p, p] and ``bias`` (diffusers' names), applied by
+    :meth:`linear` to patches flattened in (p_h, p_w, C) order."""
+
+    def __init__(self, in_channels: int, out_channels: int, patch: int,
+                 policy: Policy = DEFAULT_POLICY):
+        super().__init__(in_channels, out_channels, patch, stride=patch,
+                         dtype=policy.param_dtype)
+        self.policy = policy
+
+    def linear(self, x: torch.Tensor) -> torch.Tensor:
+        """[..., p*p*C] patches -> [..., D]."""
+        cd = self.policy.compute_dtype
+        w = self.weight.to(cd).permute(0, 2, 3, 1).reshape(self.weight.shape[0], -1)
+        return F.linear(x.to(cd), w, self.bias.to(cd))
+
+
 class FrameConv(nn.Module):
     """A (3, 1, 1) convolution over the frame axis of [B, F, H, W, C]
     activations, zero-padded one frame at each end (vdx's

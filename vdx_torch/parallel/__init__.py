@@ -1,6 +1,6 @@
-"""vdx's ``vdx.parallel`` on PyTorch: the mesh and its axis bindings
-(``mesh``), multi-process bring-up (``distributed``), ring attention
-(``ring_attention``), frame-sharded denoisers (``frame_parallel``) and
-training on one card (``train``). Window-parallel context, the data axis,
-the train step over a mesh and tensor parallelism come with the next
-slice of the port (ROADMAP Queue 1 item 14, steps 7-8)."""
+"""vdx's ``vdx.parallel`` on PyTorch: the mesh, its axis bindings, the
+differentiable collectives and ``param_sharding_rules`` (``mesh``),
+multi-process bring-up (``distributed``), ring attention
+(``ring_attention``), frame-sharded denoisers (``frame_parallel``),
+tensor-parallel execution (``tensor_parallel``) and training on one card
+or over the (data, frames, tensor) mesh (``train``)."""

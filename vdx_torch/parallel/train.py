@@ -19,6 +19,11 @@ The levers are vdx's, with vdx's arithmetic:
     full-batch one.
   * ``ema_decay`` — an EMA of the parameters, computed in fp32 and cast
     back, carried in the TrainState.
+  * :func:`make_mesh_train_step` — the same step over a (data, frames,
+    tensor) mesh (vdx's multi-chip dry run, ``__graft_entry__.py``): the
+    batch over (data, frames), the context over data, the parameters by
+    ``param_sharding_rules`` (parallel/tensor_parallel.py), the frames
+    axis through the frame-sharded denoiser under grad.
 
 Noise and timesteps come from ``core/rng.py``'s threefry port, so a key
 gives vdx's t and noise (bf16 latents draw JAX's bf16 normals).
@@ -120,11 +125,14 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, grads: Dict[str, torch.Tensor], state: dict,
-               params: Dict[str, torch.Tensor]) -> dict:
+               params: Dict[str, torch.Tensor],
+               norm: Optional[torch.Tensor] = None) -> dict:
         """One update of ``params`` (in place) from ``grads`` (same keys,
-        the parameters' dtypes); -> the new state."""
+        the parameters' dtypes); -> the new state. ``norm``: the
+        gradients' global norm where this rank holds shards of them (the
+        mesh step's :func:`mesh_global_norm`), else computed here."""
         if self.clip_norm is not None:
-            grads = clip_by_global_norm(grads, self.clip_norm)
+            grads = clip_by_global_norm(grads, self.clip_norm, norm)
         count = state["count"] + 1
         # optax: 1 - decay ** count in fp32, then in the moment's dtype
         bc1 = float(np.float32(1.0) - np.float32(self.b1) ** np.float32(count))
@@ -142,22 +150,44 @@ class AdamW:
         return {"count": count, "mu": mus, "nu": nus}
 
 
+def _sum_squares(grads) -> torch.Tensor:
+    total = None
+    for g in grads:
+        s = (g * g).sum()
+        total = s if total is None else total + s
+    return total
+
+
 def global_norm(grads: Dict[str, torch.Tensor]) -> torch.Tensor:
     """optax.global_norm: sqrt of the sum over leaves of each leaf's sum
     of squares (each sum in the leaf's dtype)."""
-    total = None
-    for g in grads.values():
-        s = (g * g).sum()
-        total = s if total is None else total + s
+    return torch.sqrt(_sum_squares(grads.values()))
+
+
+def mesh_global_norm(grads: Dict[str, torch.Tensor], sharded) -> torch.Tensor:
+    """:func:`global_norm` of gradients of which this rank holds the
+    ``sharded`` leaves' shards over the tensor axis (inside the mesh's
+    binding): a sharded leaf's squares count across its shards (a psum),
+    a replicated leaf's once."""
+    from vdx_torch.parallel.mesh import psum
+
+    total = _sum_squares(g for n, g in grads.items() if n not in sharded)
+    part = _sum_squares(g.float() for n, g in grads.items() if n in sharded)
+    if part is not None:
+        part = psum(part, "tensor")
+        total = part if total is None else total + part
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads: Dict[str, torch.Tensor],
-                        max_norm: float) -> Dict[str, torch.Tensor]:
+def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: float,
+                        norm: Optional[torch.Tensor] = None
+                        ) -> Dict[str, torch.Tensor]:
     """optax.clip_by_global_norm: the gradients as they are when their
-    global norm is below ``max_norm``, else each (g / norm) * max_norm in
-    g's dtype; no epsilon (``torch.nn.utils.clip_grad_norm_`` adds 1e-6)."""
-    norm = global_norm(grads)
+    global norm (``norm``, or computed here) is below ``max_norm``, else
+    each (g / norm) * max_norm in g's dtype; no epsilon
+    (``torch.nn.utils.clip_grad_norm_`` adds 1e-6)."""
+    if norm is None:
+        norm = global_norm(grads)
     keep = norm < max_norm
     return {n: torch.where(keep, g, (g / norm.to(g.dtype)) * max_norm)
             for n, g in grads.items()}
@@ -247,10 +277,27 @@ def _grads(loss: torch.Tensor, params: Dict[str, torch.Tensor]) -> dict:
             for (n, p), g in zip(params.items(), got)}
 
 
+@torch.no_grad()
+def _ema_update(ema: Optional[Dict[str, torch.Tensor]],
+                params: Dict[str, torch.Tensor],
+                ema_decay: Optional[float]) -> Optional[Dict[str, torch.Tensor]]:
+    """The EMA after a step: d * ema + (1 - d) * params in fp32, cast back
+    to each EMA leaf's dtype; ``ema`` as it is when ``ema_decay`` is None."""
+    if ema_decay is None:
+        return ema
+    if ema is None:
+        raise ValueError("ema_decay set but state.ema_params is None: build "
+                         "the state with init_train_state(..., ema=True)")
+    d = torch.tensor(ema_decay, dtype=torch.float32)
+    return {n: (d * e.float() + (1.0 - d) * params[n].float()).to(e.dtype)
+            for n, e in ema.items()}
+
+
 def make_train_step(model: torch.nn.Module, optimizer: AdamW,
                     schedule: ScheduleConfig = ScheduleConfig(),
                     with_grad_stats: bool = False, remat: bool = False,
-                    grad_accum: int = 1, ema_decay: Optional[float] = None):
+                    grad_accum: int = 1, ema_decay: Optional[float] = None,
+                    return_grads: bool = False):
     """-> train_step(state, batch, key) -> (state, metrics).
 
     batch: {"latents": [B, F, h, w, C] clean latents, "context": [B, S, D]};
@@ -259,7 +306,8 @@ def make_train_step(model: torch.nn.Module, optimizer: AdamW,
     metrics["grad_absmax"], {name: max |grad|}. ``remat`` recomputes the
     denoiser forward in the backward; ``grad_accum`` = k splits B into k
     micro-batches (B % k == 0); ``ema_decay`` = d needs a state built with
-    ``init_train_state(..., ema=True)``."""
+    ``init_train_state(..., ema=True)``; ``return_grads`` adds
+    metrics["grads"], the gradients the optimizer took."""
     device = _model_device(model)
     acp = torch.as_tensor(make_alphas_cumprod(schedule), device=device)
     T = schedule.num_train_timesteps
@@ -307,18 +355,11 @@ def make_train_step(model: torch.nn.Module, optimizer: AdamW,
         metrics = {"loss": loss}
         if with_grad_stats:
             metrics["grad_absmax"] = {n: g.abs().max() for n, g in grads.items()}
+        if return_grads:
+            metrics["grads"] = grads
         opt_state = optimizer.update(grads, state.opt_state, state.params)
         del grads
-        ema = state.ema_params
-        if ema_decay is not None:
-            if ema is None:
-                raise ValueError("ema_decay set but state.ema_params is None: "
-                                 "build the state with init_train_state(..., "
-                                 "ema=True)")
-            d = torch.tensor(ema_decay, dtype=torch.float32)
-            with torch.no_grad():
-                ema = {n: (d * e.float() + (1.0 - d) * state.params[n].float())
-                       .to(e.dtype) for n, e in ema.items()}
+        ema = _ema_update(state.ema_params, state.params, ema_decay)
         return TrainState(state.params, opt_state, state.step + 1, ema), metrics
 
     return train_step
@@ -379,3 +420,137 @@ def make_lora_train_step(model: torch.nn.Module, optimizer: AdamW,
                            state.ema_params), {"loss": loss.detach()})
 
     return step
+
+
+# ----------------------------------------------------------------------
+# the step over a mesh
+# ----------------------------------------------------------------------
+_BUCKET = 1 << 26  # elements an all_reduce of gradients carries at most
+
+
+def _psum_buckets(grads: Dict[str, torch.Tensor], names, axis_name: str) -> None:
+    """Sum the fp32 gradients ``names`` over the axis in place, in buckets
+    of at most _BUCKET elements (one all_reduce each)."""
+    from vdx_torch.parallel.mesh import psum
+
+    bucket, size = [], 0
+    for n in list(names) + [None]:
+        if n is not None:
+            bucket.append(n)
+            size += grads[n].numel()
+        if bucket and (n is None or size >= _BUCKET):
+            for k, g in zip(bucket, psum(tuple(grads[k] for k in bucket), axis_name)):
+                grads[k] = g
+            bucket, size = [], 0
+
+
+def make_mesh_train_step(model: torch.nn.Module, optimizer: AdamW, mesh,
+                         schedule: ScheduleConfig = ScheduleConfig(), *,
+                         remat: bool = False, grad_accum: int = 1,
+                         ema_decay: Optional[float] = None,
+                         return_grads: bool = False):
+    """:func:`make_train_step` over ``mesh`` (every rank calls it, SPMD):
+    -> train_step(state, batch, key) -> (state, metrics).
+
+    ``model``: the denoiser, tensor-parallel (``tensor_parallel``) where
+    the mesh has a tensor axis; ``state``: ``init_train_state(model)``
+    over its parameters, this rank's shards. ``batch["latents"]`` [B, F,
+    h, w, C] lies over (data, frames) and ``batch["context"]`` over data
+    (vdx's ``P("data", "frames")`` and ``P("data")``): DTensors from
+    ``prefetch_to_device(sharding=...)``, or global tensors that every
+    rank holds and cuts.
+
+    Every rank draws the global t and noise from ``key`` (the
+    single-device draw) and takes its slice; the denoiser runs on this
+    rank's frames in its frame-sharded mode (``temporal_impl``
+    "ulysses:frames", as ``frame_parallel.make_frame_sharded_denoiser``
+    runs it by default, without that apply's final all_gather), under
+    grad. The loss is the local squared
+    error over the global element count, summed over data and frames: the
+    global mean once. Each gradient is summed over data and frames (and
+    the tensor-partial ones over tensor); the clip uses the global norm
+    (:func:`mesh_global_norm`); AdamW and the EMA run on each shard.
+    ``remat``, ``grad_accum`` (the local batch splits into k micro-batches)
+    and ``ema_decay`` are the single-card step's. ``return_grads`` adds
+    metrics["grads"], the reduced gradients (this rank's shards)."""
+    from vdx_torch.parallel.mesh import (axis_index, axis_size, batch_sharding,
+                                         local_slices, psum, video_sharding)
+
+    device = _model_device(model)
+    acp = torch.as_tensor(make_alphas_cumprod(schedule), device=device)
+    T = schedule.num_train_timesteps
+    impl = "ulysses:frames"
+    sharded = set(getattr(model, "tp_layout", {}))
+    partial = set(getattr(model, "tp_partial", ()))
+    layouts = {"latents": video_sharding(mesh), "context": batch_sharding(mesh)}
+
+    def local(name, x):
+        """-> (this rank's shard on the model's device, the global shape)."""
+        from torch.distributed.tensor import DTensor
+
+        if isinstance(x, DTensor):
+            return x.to_local().to(device), tuple(x.shape)
+        x = torch.as_tensor(x)
+        sl = local_slices(layouts[name], x.shape,
+                          mesh.device_mesh.get_coordinate())
+        return x[sl].to(device), tuple(x.shape)
+
+    def run(noisy, t, context):
+        with mesh.bind():  # also where remat recomputes (autograd's thread)
+            return model(noisy, t, context, temporal_impl=impl)
+
+    def apply(noisy, t, context):
+        if remat:
+            return checkpoint(run, noisy, t, context, use_reentrant=False)
+        return run(noisy, t, context)
+
+    def train_step(state: TrainState, batch: dict, key):
+        latents, shape = local("latents", batch["latents"])
+        context, _ = local("context", batch["context"])
+        params = state.params
+        with mesh.bind():
+            nd, nf = axis_size("data"), axis_size("frames")
+            di, fi = axis_index("data"), axis_index("frames")
+            B, F_ = shape[:2]
+            Bl, Fl = B // nd, F_ // nf
+            rt, rn = rng.split(_as_key(key))
+            bs, fs = slice(di * Bl, (di + 1) * Bl), slice(fi * Fl, (fi + 1) * Fl)
+            t = rng.randint(rt, (B,), 0, T, device=device)[bs]
+            noise = rng.key_normal(rn, shape, device, dtype=latents.dtype)[bs, fs]
+            a = acp[t.long()].reshape((Bl,) + (1,) * (latents.dim() - 1))
+            noisy = torch.sqrt(a) * latents + torch.sqrt(1.0 - a) * noise
+            if Bl % grad_accum:
+                raise ValueError(f"the local batch {Bl} must divide into "
+                                 f"grad_accum={grad_accum} micro-batches")
+            count = float(np.prod(shape))
+            m = Bl // grad_accum
+            loss_sum = torch.zeros((), dtype=torch.float32, device=device)
+            sums = {n: torch.zeros(p.shape, dtype=torch.float32, device=device)
+                    for n, p in params.items()}
+            for i in range(grad_accum):
+                sl = slice(i * m, (i + 1) * m)
+                pred = apply(noisy[sl], t[sl], context[sl])
+                loss = ((pred.float() - noise[sl].float()) ** 2).sum() / count
+                grads = _grads(loss, params)
+                loss_sum = loss_sum + loss.detach()
+                for n, g in grads.items():
+                    sums[n] += g
+                del grads, pred, loss
+            with torch.no_grad():
+                for ax in ("data", "frames"):
+                    _psum_buckets(sums, list(sums), ax)
+                    loss_sum = psum(loss_sum, ax)
+                _psum_buckets(sums, [n for n in sums if n in partial], "tensor")
+                grads = {n: g.to(params[n].dtype) for n, g in sums.items()}
+                del sums
+                norm = (mesh_global_norm(grads, sharded)
+                        if optimizer.clip_norm is not None else None)
+            opt_state = optimizer.update(grads, state.opt_state, params, norm)
+        metrics = {"loss": loss_sum}
+        if return_grads:
+            metrics["grads"] = grads
+        del grads
+        ema = _ema_update(state.ema_params, params, ema_decay)
+        return TrainState(params, opt_state, state.step + 1, ema), metrics
+
+    return train_step

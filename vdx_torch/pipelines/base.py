@@ -328,11 +328,6 @@ class VideoDiffusionPipeline:
         if frame_shards > 1 and not self.supports_frame_shards:
             raise ValueError(f"{type(self).__name__} denoiser has no "
                              "frame-sharded (ring) execution mode")
-        if frame_shards > 1 and context is not None:
-            raise NotImplementedError(
-                "context windows with frame_shards > 1 (window parallelism, "
-                "vdx's make_windowed_apply_sharded) come with the next slice "
-                "of the port (ROADMAP Queue 1 item 14, step 7)")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device='cuda' but no CUDA device is available; "
@@ -359,10 +354,15 @@ class VideoDiffusionPipeline:
         self._has_params = False
         unet_config = unet_config or self.denoiser_config_cls()
         # frame-axis sequence parallelism: the denoiser runs frame-sharded
-        # over the mesh's frames axis, every rank on the same request
+        # over the mesh's frames axis, every rank on the same request.
+        # With ``context``, WINDOW parallelism instead: each rank evaluates
+        # its share of a step's context windows with the local denoiser on
+        # the replicated latents, and the blend is a psum; requests of
+        # context.frames frames or fewer run the local denoiser
         self.frame_shards = frame_shards
         self.mesh = None
         self._sharded_unet_apply = None
+        self._window_parallel = frame_shards > 1 and context is not None
         if frame_shards > 1:
             check_seq_impl(seq_impl)
             self.mesh = mesh if mesh is not None else make_mesh(1, frame_shards, 1)
@@ -372,9 +372,10 @@ class VideoDiffusionPipeline:
             if self.mesh.device_type != self.device.type:
                 raise ValueError(f"the mesh's devices are {self.mesh.device_type!r}, "
                                  f"the pipeline's {self.device.type!r}")
-            self._sharded_unet_apply = make_frame_sharded_denoiser(
-                self.mesh, n_conditioning=self.n_denoiser_cond,
-                seq_impl=seq_impl)
+            if not self._window_parallel:
+                self._sharded_unet_apply = make_frame_sharded_denoiser(
+                    self.mesh, n_conditioning=self.n_denoiser_cond,
+                    seq_impl=seq_impl)
         self._build(
             unet=lambda: self.denoiser_cls(unet_config, policy,
                                            attn_impl=attn_impl, freeu=freeu),
@@ -791,7 +792,7 @@ class VideoDiffusionPipeline:
     def _denoiser(self, frames_valid: Optional[int] = None) -> Callable:
         """The denoiser a step calls: the UNet, or under frame sharding
         its sharded apply on the UNet's weights."""
-        if self.mesh is None:
+        if self._sharded_unet_apply is None:
             return self.unet
         return functools.partial(self._sharded_unet_apply, self.unet,
                                  frames_valid=frames_valid)
@@ -917,11 +918,15 @@ class VideoDiffusionPipeline:
                 "multi-chip runs have no dispatch ceiling — use "
                 "frame_shards/window parallelism without it")
         # ragged frame sharding: the frame axis is zero-padded to the next
-        # multiple of the shards and trimmed after
+        # multiple of the shards and trimmed after. Under window
+        # parallelism the denoise runs on the unpadded, replicated latents
+        # (a pad frame would lie in no window) and only the shard-local
+        # decode pads (vdx's pad_frames, decode_pad = 0, mesh_pad)
         shards = 1 if self.mesh is None else self.mesh.shape["frames"]
-        pad_frames = (-num_frames) % shards
-        local_frames = (num_frames + pad_frames) // shards
-        if pad_frames and video is not None:
+        mesh_pad = (-num_frames) % shards
+        pad_frames = 0 if self._window_parallel else mesh_pad
+        local_frames = (num_frames + mesh_pad) // shards
+        if mesh_pad and video is not None:
             # vdx's shard-local encode takes whole shards of the clip
             raise ValueError(f"video2video over {shards} frame shards needs a "
                              f"frame count they divide, got {num_frames}")
@@ -958,7 +963,8 @@ class VideoDiffusionPipeline:
         if self.context is not None and num_frames > self.context.frames:
             unet = make_windowed_apply(
                 self.unet, total_frames=num_frames,
-                out_channels=self.latent_channels, cfg=self.context)
+                out_channels=self.latent_channels, cfg=self.context,
+                mesh=self.mesh if self._window_parallel else None)
         if pad_frames and concat is not None:
             concat = _pad_frames(concat, pad_frames)
         req = _Request(None, guidance, scale, scheduler, tables,
@@ -981,9 +987,9 @@ class VideoDiffusionPipeline:
             return PipelineOutput(frames=[], latents=latents, n_evals=n_evals)
         # the pad slots decode as zeros (a temporal decode chunk that spans
         # the real/pad boundary reads zeros, not the loop's don't-care values)
-        frames = self._decode(_pad_frames(latents, pad_frames), chunk,
+        frames = self._decode(_pad_frames(latents, mesh_pad), chunk,
                               **(decode_opts or {}))
-        if pad_frames:
+        if mesh_pad:
             frames = frames[:, :num_frames]
         if output_type == "device":
             return PipelineOutput(frames=frames, latents=latents, n_evals=n_evals)

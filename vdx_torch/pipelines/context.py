@@ -15,10 +15,14 @@ Rescheduling", 2023).
   triangles ("pyramid") by default.
 * When one window covers the clip the wrapper is the identity, so the
   pipeline equals the context-free one bit for bit.
+* Window parallelism (:func:`make_windowed_apply` with ``mesh``): over a
+  mesh axis, each rank evaluates its round-robin share of the windows on the
+  replicated latents and the blend is a psum, equal bit for bit to the
+  sequential blend where no frame lies in more than two windows.
 
-Window parallelism over several devices (vdx's
-``make_windowed_apply_sharded``) comes with the next slice of the port
-(ROADMAP Queue 1 item 14, step 7).
+``window_evals`` counts the window evaluations of the sequential and the
+window-parallel wrapper ("sequential", "sharded"; a dummy window counts
+too), so a run can show which one ran.
 """
 
 from __future__ import annotations
@@ -31,6 +35,9 @@ import numpy as np
 import torch
 
 from vdx_torch.core import rng
+
+#: window evaluations by wrapper since the last reset
+window_evals = {"sequential": 0, "sharded": 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,19 +91,44 @@ def window_weights(frames: int, mode: str) -> np.ndarray:
 
 
 def make_windowed_apply(unet_apply: Callable, *, total_frames: int,
-                        out_channels: int, cfg: ContextConfig) -> Callable:
+                        out_channels: int, cfg: ContextConfig, mesh=None,
+                        axis: str = "frames") -> Callable:
     """Wrap ``unet_apply(x [B, F, H, W, Cin], t, *cond)`` so that each call
     runs it per overlapping window and returns the blended [B, F, H, W,
     out_channels] prediction in fp32; ``unet_apply`` itself when one
-    window covers the clip. Conditioning after (x, t) passes through."""
+    window covers the clip. Conditioning after (x, t) passes through.
+
+    ``mesh``: window-PARALLEL over its axis ``axis``, run by every rank on
+    the same replicated latents (vdx's ``make_windowed_apply_sharded``).
+    The window starts are padded to a multiple of the axis size with
+    dummy windows at start 0 and weight 0 and laid out round-robin: rank
+    ``idx`` takes row ``idx`` of the padded starts reshaped ``(n, -1)`` in
+    Fortran order. Each rank accumulates ``acc += eps * w * valid`` and
+    ``cnt += w * valid`` over its windows in that order, then ``acc`` and
+    ``cnt`` are summed over the axis (one all_reduce) and the result is
+    ``acc / cnt`` on every rank. A dummy window runs the denoiser and adds
+    ``eps * 0`` (not 0 if eps is not finite, as vdx). With stride >=
+    frames / 2 no frame lies in more than two windows, the other ranks add
+    an exact +0.0, and a two-term fp32 sum is commutative, so the blend
+    equals the sequential one (``mesh=None``: one rank, every window, no
+    psum) bit for bit."""
     starts = window_starts(total_frames, cfg.frames, cfg.stride)
     if len(starts) == 1:
         return unet_apply
+    from vdx_torch.parallel.mesh import axis_index, psum
+
+    n = 1 if mesh is None else mesh.shape[axis]
+    counter = "sequential" if mesh is None else "sharded"
     ctx = cfg.frames
     w_np = window_weights(ctx, cfg.weights)
+    npad = (-len(starts)) % n
+    starts_p = np.asarray(list(starts) + [0] * npad, np.int64).reshape(
+        n, -1, order="F")
+    valid_p = np.asarray([1.0] * len(starts) + [0.0] * npad,
+                         np.float32).reshape(n, -1, order="F")
     w_on = {}  # device -> the weights there, uploaded once
 
-    def apply(x: torch.Tensor, t: torch.Tensor, *cond) -> torch.Tensor:
+    def blend(x, t, cond, idx):
         w = w_on.get(x.device)
         if w is None:
             w = w_on[x.device] = torch.from_numpy(w_np).to(x.device).view(
@@ -105,10 +137,20 @@ def make_windowed_apply(unet_apply: Callable, *, total_frames: int,
                           device=x.device)
         cnt = torch.zeros((1, total_frames, 1, 1, 1), dtype=torch.float32,
                           device=x.device)
-        for s in starts:
+        for s, valid in zip(starts_p[idx].tolist(), valid_p[idx].tolist()):
             eps = unet_apply(x[:, s:s + ctx], t, *cond).float()
-            acc[:, s:s + ctx] = acc[:, s:s + ctx] + eps * w
-            cnt[:, s:s + ctx] = cnt[:, s:s + ctx] + w
+            window_evals[counter] += 1
+            wv = w * valid
+            acc[:, s:s + ctx] = acc[:, s:s + ctx] + eps * wv
+            cnt[:, s:s + ctx] = cnt[:, s:s + ctx] + wv
+        return acc, cnt
+
+    def apply(x: torch.Tensor, t: torch.Tensor, *cond) -> torch.Tensor:
+        if mesh is None:
+            acc, cnt = blend(x, t, cond, 0)
+        else:
+            with mesh.bind():
+                acc, cnt = psum(blend(x, t, cond, axis_index(axis)), axis)
         return acc / cnt
 
     return apply
